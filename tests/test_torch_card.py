@@ -1,0 +1,89 @@
+"""The routing kernel on the card: ``fid_slots_rows`` on CUDA tensors
+launches the hand-written kernel, which must agree bit for bit with its
+plain PyTorch version (integer slots: tolerance 0), count its launches,
+and route a small cluster run exactly as routing on the CPU does.
+
+Imports only the port (the card's machine has no JAX and no msgpack),
+and skips where there is no CUDA card.  On a card:
+``PYTHONPATH=src python -m pytest -q tests/test_torch_card.py``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import records as T                 # noqa: E402
+from repro_torch.core.cluster import LcapCluster          # noqa: E402
+from repro_torch.core.llog import Llog                    # noqa: E402
+from repro_torch.core.session import connect              # noqa: E402
+from repro_torch.kernels import stream_ops                # noqa: E402
+
+N_SLOTS = (1, 64, 65535, 65536, 1000003)
+EDGE_FIDS = [(0, 0, 0), (1, 0, 0), ((1 << 64) - 1, (1 << 32) - 1,
+                                    (1 << 32) - 1), (1 << 63, 1, 2)]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def header_rows(n: int, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    hdr = np.zeros(n + len(EDGE_FIDS), dtype=T.HDR_DTYPE)
+    hdr["tseq"][:n] = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+    hdr["toid"][:n] = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+    hdr["tver"][:n] = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+    for j, (s, o, v) in enumerate(EDGE_FIDS):
+        hdr[n + j]["tseq"], hdr[n + j]["toid"], hdr[n + j]["tver"] = s, o, v
+    return torch.from_numpy(hdr.view(np.uint8).reshape(len(hdr), 64).copy())
+
+
+@pytest.mark.parametrize("n_slots", N_SLOTS)
+def test_kernel_matches_plain_version(card, n_slots):
+    rows = header_rows(1 << 16, seed=n_slots)
+    before = stream_ops.launches
+    got = stream_ops.fid_slots_rows(rows.to(card), n_slots)
+    torch.cuda.synchronize()
+    assert stream_ops.launches == before + 1
+    assert got.device.type == "cuda" and got.dtype == torch.int64
+    assert torch.equal(got.cpu(),
+                       stream_ops.fid_slots_rows_reference(rows, n_slots))
+
+
+def test_kernel_edge_cases(card):
+    before = stream_ops.launches
+    empty = stream_ops.fid_slots_rows(
+        torch.empty((0, 64), dtype=torch.uint8, device=card), 64)
+    assert empty.shape == (0,) and stream_ops.launches == before
+    rows = header_rows(100, seed=1).to(card)
+    with pytest.raises(ValueError):
+        stream_ops.fid_slots_rows(rows.view(-1)[8:8 + 64 * 50].view(50, 64),
+                                  64)                   # not 16-byte aligned
+    with pytest.raises(ValueError):
+        stream_ops.fid_slots_rows(rows, 1 << 31)
+
+
+def test_cluster_routes_on_the_card_like_on_the_cpu(card):
+    def run(device):
+        logs = {f"mdt{m}": Llog(f"mdt{m}") for m in range(2)}
+        cluster = LcapCluster(logs, n_shards=3, batch_size=64, device=device)
+        stream = connect(cluster).subscribe("g", auto_commit=False)
+        for m, log in enumerate(logs.values()):
+            log.log_batch([T.ChangelogRecord(
+                type=T.CL_CREATE, time=1 + i, name=b"f%d" % i,
+                tfid=T.Fid(0x200000400 + m, 1 + i % 97, 0))
+                for i in range(500)])
+        out = []
+        for _ in range(50):
+            cluster.pump()
+            out += [(pid, batch.to_wire(2)) for pid, batch in stream.fetch()]
+            stream.commit()
+        return out, cluster.routing_reads
+    before = stream_ops.launches
+    on_card, reads = run("cuda")
+    assert stream_ops.launches - before == reads > 0
+    assert on_card == run("cpu")[0]
