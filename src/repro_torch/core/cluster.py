@@ -888,11 +888,11 @@ class LcapCluster:
     def metrics(self) -> Dict[str, dict]:
         """One merged cluster registry snapshot.  Merging needs the
         observability plane (``obs/registry.merge_snapshots``), which
-        this port does not carry yet: see ROADMAP.md, Queue 1, item 7
-        (``track/``, ``obs/`` and ``policy/``)."""
+        this port does not carry yet: see ROADMAP.md, Queue 1, item 6
+        (``obs/``, ``policy/`` and the rest of ``track/``)."""
         raise NotImplementedError(
             "LcapCluster.metrics needs the obs/ port (ROADMAP.md, "
-            "Queue 1, item 7)")
+            "Queue 1, item 6)")
 
     def lag(self) -> Dict[str, Dict[str, Dict[str, int]]]:
         """Consumer lag per (group, producer), aggregated over live

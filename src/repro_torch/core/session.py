@@ -687,10 +687,10 @@ class ClusterSession:
         """Merged registry snapshots across live shards.  Merging needs
         the observability plane (``obs/registry.merge_snapshots``),
         which this port does not carry yet: see ROADMAP.md, Queue 1,
-        item 7 (``track/``, ``obs/`` and ``policy/``)."""
+        item 6 (``obs/``, ``policy/`` and the rest of ``track/``)."""
         raise NotImplementedError(
             "ClusterSession.metrics needs the obs/ port (ROADMAP.md, "
-            "Queue 1, item 7)")
+            "Queue 1, item 6)")
 
     def lag(self) -> Dict:
         """Per-(group, producer) lag aggregated over live shards: lags

@@ -18,22 +18,18 @@ reads the FID straight out of the records' 64-byte header rows.
   kernel.
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` into ``build/`` next
-to this file on first use and loaded through ``ctypes``; nothing is
-compiled or loaded at import time.
+to this file on first use and loaded through ``ctypes`` (``_build``);
+nothing is compiled or loaded at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-from typing import Optional
 
 import torch
+
+from . import _build
+from ._build import KernelCompileError  # noqa: F401  (importable from here too)
 
 HDR_SIZE = 64
 #: byte offset of cr_tfid (seq u64, oid u32, ver u32) within a header row
@@ -44,22 +40,10 @@ _C1 = 0xBF58476D1CE4E5B9
 _C2 = 0x94D049BB133111EB
 _MIX = 0x9E3779B97F4A7C15
 
-_SRC = Path(__file__).with_name("csrc") / "fid_slots.cu"
-_BUILD_DIR = Path(__file__).with_name("build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+SOURCE = _build.CSRC / "fid_slots.cu"
 
 #: kernel launches since import (or since the caller last reset it)
 launches = 0
-
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
-
-
-class KernelCompileError(RuntimeError):
-    """The CUDA kernel could not be compiled or loaded.  A RuntimeError
-    on purpose: callers that turn ``OSError`` into a shard failover must
-    never mistake a missing kernel for a dead shard."""
 
 
 def _signed(c: int) -> int:
@@ -116,57 +100,11 @@ def fid_slots_rows_reference(rows: torch.Tensor, n_slots: int) -> torch.Tensor:
     return ((hi % n_slots) * ((1 << 32) % n_slots) + lo % n_slots) % n_slots
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    return str(Path(home) / "bin" / "nvcc")
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/fid_slots.cu`` into a shared library (cached by the
-    source's hash) and return its path."""
-    src = _SRC.read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = _BUILD_DIR / f"libfid_slots-{digest[:12]}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), str(_SRC)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as exc:
-        raise KernelCompileError(f"cannot run nvcc ({cmd[0]}): {exc}") from exc
-    if proc.returncode != 0:
-        raise KernelCompileError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr}{proc.stdout}")
-    if verbose:
-        print(proc.stderr + proc.stdout, end="")
-    os.replace(tmp, out)
-    return out
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            path = build()
-            try:
-                lib = ctypes.CDLL(str(path))
-            except OSError as exc:
-                raise KernelCompileError(f"cannot load {path}: {exc}") from exc
-            lib.lcap_fid_slots.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                           ctypes.c_longlong,
-                                           ctypes.c_longlong,
-                                           ctypes.c_int, ctypes.c_void_p]
-            lib.lcap_fid_slots.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.lcap_fid_slots.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_longlong, ctypes.c_longlong,
+                                   ctypes.c_int, ctypes.c_void_p]
+    lib.lcap_fid_slots.restype = ctypes.c_int
 
 
 def fid_slots_rows(rows: torch.Tensor, n_slots: int) -> torch.Tensor:
@@ -186,7 +124,7 @@ def fid_slots_rows(rows: torch.Tensor, n_slots: int) -> torch.Tensor:
         return out
     if rows.data_ptr() % 16:
         raise ValueError("rows must be 16-byte aligned")
-    lib = _load()
+    lib = _build.load(SOURCE, _bind)
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     rc = lib.lcap_fid_slots(rows.data_ptr(), out.data_ptr(), n,
                             int(n_slots), rows.device.index or 0, stream)

@@ -1,6 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module pulls in
-no JAX, nothing of the reference package and no ``msgpack`` (the card's
-machine has none of them), and compiles or loads no kernel."""
+no JAX, nothing of the reference package, no ``msgpack`` (the card's
+machine has none of them) and no ``triton``, and compiles or loads no
+kernel."""
 
 import os
 import pkgutil
@@ -27,7 +28,17 @@ def test_every_port_module_is_listed():
     names = port_modules()
     for want in ("repro_torch.core.records", "repro_torch.core.cluster",
                  "repro_torch.core.session", "repro_torch.kernels.stream_ops",
-                 "repro_torch.core.msgpack_subset"):
+                 "repro_torch.core.msgpack_subset",
+                 "repro_torch.kernels._build",
+                 "repro_torch.kernels.flash_attention",
+                 "repro_torch.kernels.ops", "repro_torch.models.config",
+                 "repro_torch.models.layers",
+                 "repro_torch.models.transformer", "repro_torch.configs",
+                 "repro_torch.configs.granite_8b",
+                 "repro_torch.configs.gemma2_9b",
+                 "repro_torch.runtime.steps", "repro_torch.track.tracker",
+                 "repro_torch.track.consumers",
+                 "repro_torch.launch.serve"):
         assert want in names
 
 
@@ -37,11 +48,12 @@ def test_port_imports_no_jax_reference_or_msgpack():
         "import importlib, json, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
-        "from repro_torch.kernels import stream_ops\n"
+        "from repro_torch.kernels import _build, flash_attention, stream_ops\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'repro', 'msgpack'))\n"
-        "print(json.dumps({'bad': bad, 'lib': stream_ops._lib is None,\n"
-        "                  'launches': stream_ops.launches}))\n")
+        "             ('jax', 'jaxlib', 'repro', 'msgpack', 'triton'))\n"
+        "print(json.dumps({'bad': bad, 'lib': not _build._libs,\n"
+        "                  'launches': stream_ops.launches\n"
+        "                  + flash_attention.launches}))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
