@@ -11,9 +11,14 @@ Phases, in order; any failed check exits nonzero and prints no result:
 3. kernels  each kernel against its plain PyTorch version on the same
             inputs, with its time, the plain version's time and its
             bound: ``fid_slots`` bit-exact (integer outputs: tolerance
-            0); ``flash_attention`` at every case of the reference's
-            tests/test_kernels.py and at the serving path's shape,
-            within 2e-5 (float32) / 2e-2 (bfloat16), beside
+            0); each of the two attention kernels (``flash_fwd_sm90_kernel``,
+            wgmma and TMA, bf16 with D % 16 == 0; ``flash_fwd_kernel``,
+            CUDA cores, every case) at every case of the reference's
+            tests/test_kernels.py it takes, at the serving path's shape
+            and at extra bf16 cases (a 2049-token prefill, gemma2's
+            head_dim with window and softcap, rows with nothing visible),
+            within 2e-5 (float32) / 2e-2 (bfloat16); both timed at the
+            serving shape, in turns with
             ``scaled_dot_product_attention`` on the same tensors as a
             yardstick (the port never calls it);
 4. main     the sharded changelog pipeline end to end: 4 MDT journals x
@@ -26,7 +31,9 @@ Phases, in order; any failed check exits nonzero and prints no result:
 5. serve    granite-8b at full width (36 layers, 8.25 B parameters in
             bf16, seeded random weights on the card) through the port's
             serving launcher: 4 prompts of 2048 tokens prefilled through
-            the attention kernel (one launch per layer), 16 tokens
+            the wgmma attention kernel (one launch per layer, and none of
+            the CUDA-core kernel, by the wrapper's counters and by the
+            profiler's kernel names), 16 tokens
             generated, the LCAP invalidation loop over 2 replicas; then
             flash-vs-naive and prefill/decode consistency of the logits.
 
@@ -102,6 +109,12 @@ FLASH_CASES = (
        ((1, 32, 32, 2, 2, 32), "float32", True, 1, 0.0),
        ((1, 96, 96, 4, 2, 224), "bfloat16", True, 0, 50.0),
        ((1, 64, 16, 2, 1, 32), "float32", True, 4, 0.0)])
+#: bf16 cases beyond the reference's: the decode check's 2049-token
+#: prefill, gemma2-9b's head_dim with its window and softcap, and rows with
+#: nothing visible (q >= 20)
+FLASH_EXTRA = [((4, 2049, 2049, 32, 8, 128), "bfloat16", True, 0, 0.0),
+               ((1, 96, 96, 4, 2, 224), "bfloat16", True, 16, 50.0),
+               ((1, 64, 16, 2, 1, 32), "bfloat16", True, 4, 0.0)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: the serving path: granite-8b, B prompts of P tokens, G generated
 SERVE_ARCH = "granite-8b"
@@ -142,6 +155,12 @@ def nvidia_smi_line() -> str:
 def cuda_median_ms(fn, runs: int = 50) -> float:
     """Median device time of ``fn()`` over ``runs`` launches, each
     between two CUDA events (after one warm-up call)."""
+    return statistics.median(cuda_times_ms(fn, runs))
+
+
+def cuda_times_ms(fn, runs: int) -> list:
+    """Device time of ``fn()`` at each of ``runs`` launches, between two
+    CUDA events (after one warm-up call)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -153,7 +172,28 @@ def cuda_median_ms(fn, runs: int = 50) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def back_to_back_ms(fn, runs: int) -> float:
+    """Mean device time of ``fn()`` over ``runs`` launches enqueued back
+    to back between two CUDA events (after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def kernel_count(prof, name: str) -> int:
+    """Launches a CUDA-only profile saw of kernels whose name contains
+    ``name``."""
+    return sum(evt.count for evt in prof.key_averages() if name in evt.key)
 
 
 def device_busy_ms(prof, name: str = "") -> float:
@@ -530,20 +570,29 @@ def flash_bound_ms(case) -> tuple:
             else (by_bytes, "bytes")), flops, nbytes
 
 
-def flash_check(case, seed: int, dev) -> float:
-    """The kernel against its plain version on one case; returns the
-    max |difference|."""
+def takes(kernel: str, case) -> bool:
+    """Whether ``kernel`` takes ``case``: the CUDA-core kernel every case,
+    the wgmma kernel bf16 with D % 16 == 0."""
+    from repro_torch.kernels import flash_attention as fa
+    return kernel == fa.SIMT or fa.kernel_for(getattr(torch, case[1]),
+                                              case[0][5]) == fa.SM90
+
+
+def flash_check(kernel: str, case, seed: int, dev) -> float:
+    """``kernel`` against the plain version on one case; returns the max
+    |difference|."""
     from repro_torch.kernels import flash_attention as fa
     shape, dtype, causal, window, cap = case
     q, k, v = flash_qkv(shape, dtype, seed, dev)
-    before = fa.launches
-    got = fa.flash_attention_bshd(q, k, v, causal=causal, window=window,
-                                  cap=cap)
+    counter = "launches_sm90" if kernel == fa.SM90 else "launches_simt"
+    before = getattr(fa, counter)
+    got = fa.launch_kernel(kernel, q, k, v, causal=causal, window=window,
+                           cap=cap)
     torch.cuda.synchronize()
-    check(fa.launches == before + 1, f"flash_attention launch count wrong "
-          f"at {case}")
+    check(getattr(fa, counter) == before + 1,
+          f"{kernel} launch count wrong at {case}")
     check(got.shape == q.shape and got.dtype == q.dtype,
-          f"flash_attention shape/dtype wrong at {case}")
+          f"{kernel} shape/dtype wrong at {case}")
     want = fa.flash_attention_reference(q, k, v, causal=causal,
                                         window=window, cap=cap)
     tol = FLASH_TOL[dtype]
@@ -551,11 +600,11 @@ def flash_check(case, seed: int, dev) -> float:
     worst = float(err.max())
     bad = int((err > tol + tol * want.float().abs()).sum())
     check(bad == 0 and bool(torch.isfinite(got).all()),
-          f"flash_attention differs from its plain version at {case}: "
+          f"{kernel} differs from its plain version at {case}: "
           f"{bad} elements beyond rtol=atol={tol}, max |err| {worst}")
     if shape == (1, 64, 16, 2, 1, 32):
         check(bool((got[:, 20:] == 0).all()),
-              "flash_attention: fully masked rows are not 0")
+              f"{kernel}: fully masked rows are not 0")
     return worst
 
 
@@ -563,24 +612,25 @@ def flash_phase(seed: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import flash_attention as fa
     dev = DEVICE
-    worst = {"float32": 0.0, "bfloat16": 0.0}
-    for i, case in enumerate(FLASH_CASES):
-        worst[case[1]] = max(worst[case[1]], flash_check(case, seed + i, dev))
-    log(f"kernels: flash_attention within tolerance of its plain version at "
-        f"{len(FLASH_CASES)} cases (max |err| float32 {worst['float32']:.3g} "
-        f"<= 2e-5 rtol+atol, bfloat16 {worst['bfloat16']:.3g} <= 2e-2)")
-    main_err = flash_check(FLASH_MAIN, seed, dev)
+    out = {}
+    cases = FLASH_CASES + [FLASH_MAIN] + FLASH_EXTRA
+    for kernel in (fa.SM90, fa.SIMT):
+        worst = {"float32": 0.0, "bfloat16": 0.0}
+        taken = [c for c in cases if takes(kernel, c)]
+        for i, case in enumerate(taken):
+            err = flash_check(kernel, case, seed + i, dev)
+            worst[case[1]] = max(worst[case[1]], err)
+            if case == FLASH_MAIN:
+                main_err = err
+        out[kernel] = {"cases": len(taken), "max_abs_err": main_err,
+                       "max_abs_err_float32": worst["float32"],
+                       "max_abs_err_bfloat16": worst["bfloat16"]}
+        log(f"kernels: {kernel} within tolerance of the plain version at "
+            f"{len(taken)} cases (max |err| float32 {worst['float32']:.3g} "
+            f"<= 2e-5 rtol+atol, bfloat16 {worst['bfloat16']:.3g} <= 2e-2; "
+            f"serving shape {main_err:.3g})")
     (B, S, _, H, KV, D), *_ = FLASH_MAIN
     q, k, v = flash_qkv(FLASH_MAIN[0], "bfloat16", seed, dev)
-    ms = cuda_median_ms(lambda: fa.flash_attention_bshd(q, k, v, causal=True),
-                        runs=20)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            fa.flash_attention_bshd(q, k, v, causal=True)
-        torch.cuda.synchronize()
-    device_ms = device_busy_ms(prof) / 10
-    plain_ms = cuda_median_ms(
-        lambda: fa.flash_attention_reference(q, k, v, causal=True), runs=5)
     # the yardstick: one PyTorch call computing the same function
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
@@ -591,22 +641,59 @@ def flash_phase(seed: int) -> dict:
     lib_err = float((library().transpose(1, 2).float()
                      - fa.flash_attention_reference(q, k, v, causal=True)
                      .float()).abs().max())
-    library_ms = cuda_median_ms(library, runs=20)
+    fns = {fa.SM90: lambda: fa.launch_kernel(fa.SM90, q, k, v, causal=True),
+           fa.SIMT: lambda: fa.launch_kernel(fa.SIMT, q, k, v, causal=True),
+           "library": library}
+    # in turns: wgmma, CUDA cores, library, library, CUDA cores, wgmma;
+    # each launch between its own two events, and 20 launches back to back
+    # between two events (the host's launch cost then hides behind the card)
+    samples = {name: [] for name in fns}
+    turns = {name: [] for name in fns}
+    b2b = {name: [] for name in fns}
+    for order in ((fa.SM90, fa.SIMT, "library"),
+                  ("library", fa.SIMT, fa.SM90)):
+        for name in order:
+            times = cuda_times_ms(fns[name], runs=20)
+            samples[name] += times
+            turns[name].append(statistics.median(times))
+            b2b[name].append(back_to_back_ms(fns[name], runs=20))
+    ms = {name: statistics.median(t) for name, t in samples.items()}
+    device_ms = {}
+    for kernel in (fa.SM90, fa.SIMT):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fns[kernel]()
+            torch.cuda.synchronize()
+        device_ms[kernel] = device_busy_ms(prof, kernel) / 10
+    plain_ms = cuda_median_ms(
+        lambda: fa.flash_attention_reference(q, k, v, causal=True), runs=5)
     (bound_ms, bound_by), flops, nbytes = flash_bound_ms(FLASH_MAIN)
-    log(f"kernels: flash_attention bf16 B={B} S={S} H={H} KV={KV} D={D} "
-        f"causal: kernel {ms:.6f} ms (median of 20, CUDA events; "
-        f"{device_ms:.6f} ms device time by torch.profiler), plain version "
-        f"{plain_ms:.6f} ms, scaled_dot_product_attention {library_ms:.6f} ms "
-        f"(max |diff| to the plain version {lib_err:.3g}); bound "
-        f"{bound_ms:.6f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
-        f"{nbytes / 1e6:.3f} MB); max |err| {main_err:.3g}")
+    for kernel in (fa.SM90, fa.SIMT):
+        out[kernel].update({
+            "ms": ms[kernel], "turns_ms": turns[kernel],
+            "back_to_back_ms": b2b[kernel],
+            "library_back_to_back_ms": b2b["library"],
+            "device_ms": device_ms[kernel], "plain_ms": plain_ms,
+            "library_ms": ms["library"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "flops": flops, "bytes": nbytes})
+        log(f"kernels: {kernel} bf16 B={B} S={S} H={H} KV={KV} D={D} "
+            f"causal: {ms[kernel]:.6f} ms (median of 40 launches by CUDA "
+            f"events; turn medians {turns[kernel][0]:.6f} / "
+            f"{turns[kernel][1]:.6f} ms; back to back {b2b[kernel][0]:.6f} / "
+            f"{b2b[kernel][1]:.6f} ms; {device_ms[kernel]:.6f} ms device "
+            f"time by torch.profiler), {bound_ms / ms[kernel]:.3f} of its "
+            f"bound, {ms['library'] / ms[kernel]:.3f} x "
+            f"scaled_dot_product_attention's speed")
+    log(f"kernels: attention yardsticks at that shape: plain version "
+        f"{plain_ms:.6f} ms, scaled_dot_product_attention {ms['library']:.6f}"
+        f" ms (turn medians {turns['library'][0]:.6f} / "
+        f"{turns['library'][1]:.6f}; back to back {b2b['library'][0]:.6f} / "
+        f"{b2b['library'][1]:.6f}; max |diff| to the plain version "
+        f"{lib_err:.3g}); bound {bound_ms:.6f} ms ({bound_by}: "
+        f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "flops": flops, "bytes": nbytes,
-            "max_abs_err": main_err, "max_abs_err_float32": worst["float32"],
-            "max_abs_err_bfloat16": worst["bfloat16"]}
+    return out
 
 
 # ------------------------------------------------------------ phase 5: serve
@@ -631,13 +718,17 @@ def serve_phase(seed: int) -> dict:
     tokens = S.make_tokens(cfg, SERVE_B, SERVE_P, seed=seed, device=dev)
     torch.cuda.reset_peak_memory_stats()
 
-    fa.launches = 0
+    fa.launches = fa.launches_sm90 = fa.launches_simt = 0
     out = S.serve(cfg, params, tokens, gen_len=SERVE_G,
                   replicas=SERVE_REPLICAS)
-    launches = fa.launches
+    launches = fa.launches_sm90
+    simt_launches = fa.launches_simt
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(launches == cfg.n_layers, f"the prefill launched flash_attention "
-          f"{launches} times, not once per layer ({cfg.n_layers})")
+    check(launches == cfg.n_layers == fa.launches,
+          f"the prefill launched {fa.SM90} {launches} times ({fa.launches} "
+          f"attention launches in all), not once per layer ({cfg.n_layers})")
+    check(simt_launches == 0, f"the prefill launched {fa.SIMT} "
+          f"{simt_launches} times")
     logits, gen = out["prefill_logits"], out["generated"]
     check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
     check(tuple(gen.shape) == (SERVE_B, SERVE_G) and
@@ -657,7 +748,8 @@ def serve_phase(seed: int) -> dict:
         f"decode {decode_ms:.3f} ms per step over {steps} steps "
         f"({decode_tok_s:.1f} generated tokens/s), {SERVE_B} x {SERVE_G} "
         f"tokens generated in all at {total_tok_s:.1f} tokens/s; "
-        f"flash_attention launches {launches}; peak memory {peak_gb:.3f} GB")
+        f"{fa.SM90} launches {launches}, {fa.SIMT} launches "
+        f"{simt_launches}; peak memory {peak_gb:.3f} GB")
     log(f"serve: invalidation over {SERVE_REPLICAS} replicas: evicted "
         f"{out['evicted_per_replica']}, remaining pages "
         f"{out['remaining_pages']}")
@@ -669,12 +761,16 @@ def serve_phase(seed: int) -> dict:
                         replicas=SERVE_REPLICAS)
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms = device_busy_ms(prof)
-    kernel_ms = device_busy_ms(prof, "flash_fwd_kernel")
+    kernel_ms = device_busy_ms(prof, fa.SM90)
+    seen = {name: kernel_count(prof, name) for name in (fa.SM90, fa.SIMT)}
+    check(seen == {fa.SM90: cfg.n_layers, fa.SIMT: 0},
+          f"the profiled prefill's attention kernels by name: {seen}")
     prof_prefill_ms = again["prefill_s"] * 1e3
     log(f"serve (profiled run): {wall_ms:.3f} ms wall, device busy "
         f"{busy_ms:.3f} ms (idle {100 * (1 - busy_ms / wall_ms):.3f} %); "
-        f"prefill {prof_prefill_ms:.3f} ms, of which the attention kernel "
-        f"{kernel_ms:.3f} ms ({100 * kernel_ms / prof_prefill_ms:.3f} %)")
+        f"prefill {prof_prefill_ms:.3f} ms, of which {fa.SM90} "
+        f"{kernel_ms:.3f} ms ({100 * kernel_ms / prof_prefill_ms:.3f} %); "
+        f"kernels by name: {seen}")
 
     with torch.inference_mode():
         naive, _ = T.prefill(params, cfg, tokens, max_seq=SERVE_P,
@@ -734,7 +830,8 @@ def serve_phase(seed: int) -> dict:
             "decode_ms_per_step": decode_ms,
             "decode_tokens_per_s": decode_tok_s,
             "generated_tokens_per_s": total_tok_s,
-            "flash_launches": launches, "peak_memory_gb": peak_gb,
+            "flash_launches": launches, "simt_launches": simt_launches,
+            "profiled_kernel_launches": seen, "peak_memory_gb": peak_gb,
             "phase_peak_memory_gb": phase_peak_gb,
             "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / wall_ms,
@@ -777,13 +874,12 @@ def main() -> int:
     # tolerance (2e-5) does not survive TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.kernels import _build, flash_attention, stream_ops
+    from repro_torch.kernels import _build, flash_attention as fa, stream_ops
     t0 = time.perf_counter()
-    built = _build.build(stream_ops.SOURCE, flash_attention.SOURCE,
-                         verbose=True)
+    built = _build.build(stream_ops.SOURCE, *fa.SOURCES, verbose=True)
     for lib, seconds in built:
         log(f"build: {lib.name} in {seconds:.3f} s")
-    log(f"build: both kernels in {time.perf_counter() - t0:.3f} s "
+    log(f"build: {len(built)} sources in {time.perf_counter() - t0:.3f} s "
         "(one nvcc each, in parallel)")
 
     k = kernel_phase(args.seed)
@@ -809,27 +905,39 @@ def main() -> int:
         "bound_with_launch_ms": at["bound_with_launch_ms"],
         "bound_with_launch_by": at["bound_with_launch_by"],
         "at_2p20": k["sizes"][1 << 20],
-    }, {
-        "name": "flash_attention",
+    }] + [{
+        "name": name,
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": source,
         "replaces": "src/repro/kernels/flash_attention.py:32",
-        "launches": sv["flash_launches"],
-        "max_abs_err": fl["max_abs_err"],
-        "ms": fl["ms"], "plain_ms": fl["plain_ms"],
-        "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
-        "library_ms": fl["library_ms"],
+        "launches": launches,
+        "max_abs_err": fl[kernel]["max_abs_err"],
+        "ms": fl[kernel]["ms"], "plain_ms": fl[kernel]["plain_ms"],
+        "bound_ms": fl[kernel]["bound_ms"],
+        "bound_by": fl[kernel]["bound_by"],
+        "library_ms": fl[kernel]["library_ms"],
         "shape": "q (4, 2048, 32, 128), k/v (4, 2048, 8, 128) bf16, causal",
-        "device_ms": fl["device_ms"], "flops": fl["flops"],
-        "bytes": fl["bytes"],
-        "max_abs_err_float32": fl["max_abs_err_float32"],
-        "max_abs_err_bfloat16": fl["max_abs_err_bfloat16"],
-    }], "main_path": {"records": N_MDTS * RECORDS_PER_MDT,
-                      "seconds": main["seconds"],
-                      "records_per_s": main["records_per_s"],
-                      "routing_reads": main["reads"],
-                      "routing_s": main["routing_s"],
-                      "device_busy_ms": main["device_busy_ms"]}}
+        "kernel": kernel, "cases": fl[kernel]["cases"],
+        "turns_ms": fl[kernel]["turns_ms"],
+        "back_to_back_ms": fl[kernel]["back_to_back_ms"],
+        "library_back_to_back_ms": fl[kernel]["library_back_to_back_ms"],
+        "device_ms": fl[kernel]["device_ms"], "flops": fl[kernel]["flops"],
+        "bytes": fl[kernel]["bytes"],
+        "max_abs_err_float32": fl[kernel]["max_abs_err_float32"],
+        "max_abs_err_bfloat16": fl[kernel]["max_abs_err_bfloat16"],
+    } for name, kernel, source, launches in (
+        ("flash_attention_sm90", fa.SM90,
+         "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+         sv["flash_launches"]),
+        ("flash_attention", fa.SIMT,
+         "src/repro_torch/kernels/csrc/flash_attention.cu",
+         sv["simt_launches"]))]}
+    kernels["main_path"] = {"records": N_MDTS * RECORDS_PER_MDT,
+                            "seconds": main["seconds"],
+                            "records_per_s": main["records_per_s"],
+                            "routing_reads": main["reads"],
+                            "routing_s": main["routing_s"],
+                            "device_busy_ms": main["device_busy_ms"]}
     print(json.dumps({"serve": sv}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -1,23 +1,33 @@
 """Flash attention, forward only (PyTorch / CUDA path).
 
 In the reference this is the Pallas kernel
-``repro/kernels/flash_attention.py::_flash_kernel``; here it is a CUDA
-kernel written by hand for Hopper (``csrc/flash_attention.cu``), read in
-the model's own ``(B, S, heads, D)`` layout.
+``repro/kernels/flash_attention.py::_flash_kernel``; here it is one of two
+CUDA kernels written by hand for Hopper, read in the model's own
+``(B, S, heads, D)`` layout:
+
+- ``flash_fwd_sm90_kernel`` (``csrc/flash_attention_sm90.cu``): bf16 with
+  ``D % 16 == 0``; both products on the tensor cores by ``wgmma``, tiles
+  loaded by TMA.  P is rounded to bf16 before P.V.
+- ``flash_fwd_kernel`` (``csrc/flash_attention.cu``): float32, and bf16 at
+  any other D; both products on the CUDA cores in fp32.
+
+``kernel_for(dtype, head_dim)`` makes that choice, from the dtype and D
+alone; the wrapper never falls back from one kernel to the other.
 
 - ``flash_attention_bshd(q, k, v, *, causal, window, cap, scale)`` is the
   wrapper: q ``(B, Sq, H, D)``, k and v ``(B, Sk, KV, D)``, float32 or
   bfloat16, ``H % KV == 0``, ``D <= 256``; it returns ``(B, Sq, H, D)`` in
-  q's type.  On CUDA tensors it launches the kernel and raises on
-  anything the kernel does not take; on CPU tensors it runs
+  q's type.  On CUDA tensors it launches the chosen kernel and raises on
+  anything that kernel does not take; on CPU tensors it runs
   ``flash_attention_reference``.
 - ``flash_attention_reference`` is the plain PyTorch version: a masked
-  softmax in fp32 with the kernel's semantics (a fully masked row gives
+  softmax in fp32 with the kernels' semantics (a fully masked row gives
   0, where ``repro/kernels/ref.py`` gives NaN).
-- ``launches`` counts kernel launches, so a run can show its attention
-  went through the kernel.
+- ``launches`` counts launches of either kernel, ``launches_sm90`` and
+  ``launches_simt`` each kernel's own, so a run can show which kernel
+  its attention went through.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use
+The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use
 (``_build``); nothing is compiled or loaded at import time.
 """
 
@@ -31,11 +41,25 @@ import torch
 from . import _build
 
 SOURCE = _build.CSRC / "flash_attention.cu"
+SOURCE_SM90 = _build.CSRC / "flash_attention_sm90.cu"
+SOURCES = (SOURCE, SOURCE_SM90)
+#: the two kernels, by their CUDA names
+SM90 = "flash_fwd_sm90_kernel"
+SIMT = "flash_fwd_kernel"
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: kernel launches since import (or since the caller last reset it)
+#: kernel launches since import (or since the caller last reset them): of
+#: either kernel, and of each
 launches = 0
+launches_sm90 = 0
+launches_simt = 0
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that takes a call: ``SM90`` for bf16 with ``head_dim``
+    a multiple of 16, else ``SIMT``."""
+    return SM90 if dtype == torch.bfloat16 and head_dim % 16 == 0 else SIMT
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -103,6 +127,15 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return o.to(q.dtype)
 
 
+def _bind_sm90(lib: ctypes.CDLL) -> None:
+    lib.lcap_flash_attention_sm90.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.lcap_flash_attention_sm90.restype = ctypes.c_int
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     lib.lcap_flash_attention.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -118,17 +151,43 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          cap: float = 0.0,
                          scale: Optional[float] = None) -> torch.Tensor:
     """Attention of q ``(B, Sq, H, D)`` over k, v ``(B, Sk, KV, D)``.
-    CUDA tensors go through the kernel (or raise); CPU tensors go
-    through ``flash_attention_reference``."""
-    global launches
+    CUDA tensors go through ``kernel_for``'s kernel (or raise); CPU
+    tensors go through ``flash_attention_reference``."""
     window, cap = int(window), float(cap)
     _check(q, k, v, window, cap)
-    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
+        scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
         return flash_attention_reference(q, k, v, causal=causal,
                                          window=window, cap=cap, scale=scale)
+    return _launch(kernel_for(q.dtype, q.shape[-1]), q, k, v, causal, window,
+                   cap, scale)
+
+
+def launch_kernel(kernel: str, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, *, causal: bool = True, window: int = 0,
+                  cap: float = 0.0,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """``flash_attention_bshd`` through a named kernel (``SM90`` or
+    ``SIMT``) on CUDA tensors, so a check can hold each kernel against the
+    plain version and time the two on the same inputs.  ``SM90`` takes
+    only bf16 with D % 16 == 0."""
+    window, cap = int(window), float(cap)
+    _check(q, k, v, window, cap)
+    if kernel not in (SM90, SIMT):
+        raise ValueError(f"unknown kernel {kernel!r}; {SM90} or {SIMT}")
+    if kernel == SM90 and kernel_for(q.dtype, q.shape[-1]) != SM90:
+        raise ValueError(f"{SM90} takes bf16 with D % 16 == 0, not "
+                         f"{q.dtype} with D = {q.shape[-1]}")
+    return _launch(kernel, q, k, v, causal, window, cap, scale)
+
+
+def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, window: int, cap: float,
+            scale: Optional[float]) -> torch.Tensor:
+    global launches, launches_sm90, launches_simt
     if q.device.type != "cuda":
         raise ValueError(f"q must live on cuda or cpu, not {q.device}")
+    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -136,16 +195,32 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     if Sk == 0:
         return out.zero_()
-    strides = (ctypes.c_longlong * 12)(*(
-        s for t in (q, k, v, out) for s in t.stride()[:3]))
-    lib = _build.load(SOURCE, _bind)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.lcap_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-        B, H, KV, Sq, Sk, D, int(bool(causal)), window, scale, cap,
-        _DTYPES[q.dtype], q.device.index or 0, stream)
+    device = q.device.index or 0
+    if kernel == SM90:
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("q, k and v must start at 16-byte aligned "
+                             "addresses (tensor maps need it)")
+        lib = _build.load(SOURCE_SM90, _bind_sm90)
+        rc = lib.lcap_flash_attention_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            KV, Sq, Sk, D, int(bool(causal)), window, scale, cap, device,
+            stream)
+    else:
+        strides = (ctypes.c_longlong * 12)(*(
+            s for t in (q, k, v, out) for s in t.stride()[:3]))
+        lib = _build.load(SOURCE, _bind)
+        rc = lib.lcap_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            strides, B, H, KV, Sq, Sk, D, int(bool(causal)), window, scale,
+            cap, _DTYPES[q.dtype], device, stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError {rc}")
+        what = (f"CUresult {-rc} building a tensor map" if rc < 0
+                else f"cudaError {rc}")
+        raise RuntimeError(f"{kernel} launch failed: {what}")
     launches += 1
+    if kernel == SM90:
+        launches_sm90 += 1
+    else:
+        launches_simt += 1
     return out

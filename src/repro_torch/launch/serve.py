@@ -33,10 +33,12 @@ import torch
 def make_tokens(cfg, batch: int, prompt_len: int, seed: int = 0,
                 device=None) -> torch.Tensor:
     """The launcher's prompts: ``np.random.RandomState(seed)`` token ids,
-    as the reference's launcher draws them."""
+    as the reference's launcher draws them, on the card unless ``device``
+    asks for the CPU (``models.transformer.resolve_device``)."""
+    from ..models.transformer import resolve_device
     rng = np.random.RandomState(seed)
     ids = rng.randint(0, cfg.vocab_size, (batch, prompt_len))
-    return torch.from_numpy(ids.astype(np.int64)).to(device)
+    return torch.from_numpy(ids.astype(np.int64)).to(resolve_device(device))
 
 
 def _sync(device: torch.device) -> None:

@@ -147,3 +147,80 @@ def test_attention_core_refuses_unknown_impl():
     pos = torch.arange(4)[None]
     with pytest.raises(ValueError):
         port_layers.attention_core(q, q, q, pos, pos, impl="pallas")
+
+
+# ------------------------------------------------------- the kernel choice
+HEAD_DIMS = [32, 64, 80, 100, 128, 224, 256]
+
+
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_choice_by_dtype_and_head_dim(monkeypatch, dtype, head_dim):
+    """bf16 with D % 16 == 0 goes to the wgmma kernel, everything else to
+    the CUDA-core kernel; the wrapper launches what ``kernel_for`` picks
+    (tensors on the meta device stand in for the card's)."""
+    dt = getattr(torch, dtype)
+    want = fa.SM90 if dtype == "bfloat16" and head_dim % 16 == 0 else fa.SIMT
+    assert fa.kernel_for(dt, head_dim) == want
+    seen = []
+    monkeypatch.setattr(fa, "_launch", lambda kernel, *a: seen.append(kernel))
+    q = torch.empty(1, 8, 4, head_dim, dtype=dt, device="meta")
+    kv = torch.empty(1, 8, 2, head_dim, dtype=dt, device="meta")
+    fa.flash_attention_bshd(q, kv, kv)
+    assert seen == [want]
+
+
+def _meta(shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+Q, KV = (1, 8, 4, 32), (1, 8, 2, 32)
+REFUSALS = {
+    "half": (TypeError, lambda: fa.flash_attention_bshd(
+        _meta(Q, torch.half), _meta(KV, torch.half), _meta(KV, torch.half))),
+    "int": (TypeError, lambda: fa.flash_attention_bshd(
+        _meta(Q, torch.int32), _meta(KV, torch.int32),
+        _meta(KV, torch.int32))),
+    "mixed-dtypes": (TypeError, lambda: fa.flash_attention_bshd(
+        _meta(Q), _meta(KV, torch.float32), _meta(KV))),
+    "3-d": (ValueError, lambda: fa.flash_attention_bshd(
+        _meta(Q[1:]), _meta(KV), _meta(KV))),
+    "not-contiguous": (ValueError, lambda: fa.flash_attention_bshd(
+        _meta((1, 4, 8, 32)).transpose(1, 2), _meta(KV), _meta(KV))),
+    "heads-not-a-multiple": (ValueError, lambda: fa.flash_attention_bshd(
+        _meta((1, 8, 3, 32)), _meta(KV), _meta(KV))),
+    "head-dim-264": (ValueError, lambda: fa.flash_attention_bshd(
+        _meta((1, 8, 4, 264)), _meta((1, 8, 2, 264)), _meta((1, 8, 2, 264)))),
+    "k-v-shapes-differ": (ValueError, lambda: fa.flash_attention_bshd(
+        _meta(Q), _meta(KV), _meta((1, 9, 2, 32)))),
+    "negative-window": (ValueError, lambda: fa.flash_attention_bshd(
+        _meta(Q), _meta(KV), _meta(KV), window=-1)),
+    "negative-cap": (ValueError, lambda: fa.flash_attention_bshd(
+        _meta(Q), _meta(KV), _meta(KV), cap=-1.0)),
+    "unknown-kernel": (ValueError, lambda: fa.launch_kernel(
+        "flash_fwd_tf32", _meta(Q), _meta(KV), _meta(KV))),
+    "sm90-float32": (ValueError, lambda: fa.launch_kernel(
+        fa.SM90, _meta(Q, torch.float32), _meta(KV, torch.float32),
+        _meta(KV, torch.float32))),
+    "sm90-head-dim-40": (ValueError, lambda: fa.launch_kernel(
+        fa.SM90, _meta((1, 8, 4, 40)), _meta((1, 8, 2, 40)),
+        _meta((1, 8, 2, 40)))),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSALS))
+def test_wrapper_refuses_before_any_device_check(monkeypatch, case):
+    """What no kernel takes is refused from the tensors' metadata alone,
+    before the device is looked at and before any launch."""
+    seen = []
+    monkeypatch.setattr(fa, "_launch", lambda *a: seen.append(a))
+    error, call = REFUSALS[case]
+    before = fa.launches
+    with pytest.raises(error):
+        call()
+    assert seen == [] and fa.launches == before
+
+
+def test_wrapper_refuses_a_device_it_does_not_run_on():
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa.flash_attention_bshd(_meta(Q), _meta(KV), _meta(KV))

@@ -2,11 +2,14 @@
 launches the hand-written routing kernel, which must agree bit for bit
 with its plain PyTorch version (integer slots: tolerance 0), count its
 launches, and route a small cluster run exactly as routing on the CPU
-does.  ``flash_attention_bshd`` on CUDA tensors launches the attention
-kernel, which must agree with its plain version within the reference's
-own tolerances (``tests/test_kernels.py``: 2e-5 for float32, 2e-2 for
-bfloat16) at every case of that file, give 0 on fully masked rows, and
-refuse what it does not take.
+does.  ``flash_attention_bshd`` on CUDA tensors launches one of the two
+attention kernels (``kernel_for``: the wgmma kernel for bf16 with
+D % 16 == 0, the CUDA-core kernel otherwise); each kernel must agree
+with the plain version within the reference's own tolerances
+(``tests/test_kernels.py``: 2e-5 for float32, 2e-2 for bfloat16) at
+every case of that file it takes, at the serving shape and at the extra
+bf16 cases, give 0 on fully masked rows, and refuse what it does not
+take.
 
 Imports only the port (the card's machine has no JAX and no msgpack),
 and skips where there is no CUDA card.  On a card:
@@ -123,17 +126,20 @@ def test_cluster_routes_on_the_card_like_on_the_cpu(card):
     assert on_card == run("cpu")[0]
 
 
-@pytest.mark.parametrize("case", FLASH_CASES,
-                         ids=lambda c: "-".join(map(str, c[0])) +
-                         f"-{c[1]}-causal{int(c[2])}-w{c[3]}-cap{c[4]:g}")
-def test_flash_kernel_matches_plain_version(card, case):
+def case_id(c):
+    return ("-".join(map(str, c[0])) +
+            f"-{c[1]}-causal{int(c[2])}-w{c[3]}-cap{c[4]:g}")
+
+
+def takes(kernel, case):
+    """Whether ``kernel`` takes ``case``: the CUDA-core kernel takes every
+    case, the wgmma kernel bf16 with D % 16 == 0."""
+    return kernel == fa.SIMT or fa.kernel_for(getattr(torch, case[1]),
+                                              case[0][5]) == fa.SM90
+
+
+def check_against_plain(got, q, k, v, case):
     shape, dtype, causal, window, cap = case
-    q, k, v = qkv(shape, dtype, seed=sum(shape), device=card)
-    before = fa.launches
-    got = fa.flash_attention_bshd(q, k, v, causal=causal, window=window,
-                                  cap=cap)
-    torch.cuda.synchronize()
-    assert fa.launches == before + 1
     assert got.shape == q.shape and got.dtype == q.dtype
     want = fa.flash_attention_reference(q, k, v, causal=causal,
                                         window=window, cap=cap)
@@ -141,6 +147,46 @@ def test_flash_kernel_matches_plain_version(card, case):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     if shape == (1, 64, 16, 2, 1, 32):
         assert bool((got[:, 20:] == 0).all())
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=case_id)
+def test_flash_kernel_matches_plain_version(card, case):
+    """Through the wrapper: the kernel ``kernel_for`` picks, one launch."""
+    shape, dtype, causal, window, cap = case
+    q, k, v = qkv(shape, dtype, seed=sum(shape), device=card)
+    kernel = fa.kernel_for(q.dtype, shape[5])
+    before = (fa.launches, fa.launches_sm90, fa.launches_simt)
+    got = fa.flash_attention_bshd(q, k, v, causal=causal, window=window,
+                                  cap=cap)
+    torch.cuda.synchronize()
+    sm90 = int(kernel == fa.SM90)
+    assert (fa.launches, fa.launches_sm90, fa.launches_simt) == (
+        before[0] + 1, before[1] + sm90, before[2] + 1 - sm90)
+    check_against_plain(got, q, k, v, case)
+
+
+#: the serving path's shape, and bf16 cases beyond the reference's: the
+#: decode check's 2049-token prefill, gemma2-9b's head_dim with its window
+#: and softcap, and rows with nothing visible
+SERVING = ((4, 2048, 2048, 32, 8, 128), "bfloat16", True, 0, 0.0)
+EXTRA_CASES = [SERVING,
+               ((4, 2049, 2049, 32, 8, 128), "bfloat16", True, 0, 0.0),
+               ((1, 96, 96, 4, 2, 224), "bfloat16", True, 16, 50.0),
+               ((1, 64, 16, 2, 1, 32), "bfloat16", True, 4, 0.0)]
+KERNEL_CASES = [(kernel, case) for case in FLASH_CASES + EXTRA_CASES
+                for kernel in (fa.SM90, fa.SIMT) if takes(kernel, case)]
+
+
+@pytest.mark.parametrize("kernel,case", KERNEL_CASES,
+                         ids=lambda x: x if isinstance(x, str) else
+                         case_id(x))
+def test_each_flash_kernel_matches_plain_version(card, kernel, case):
+    shape, dtype, causal, window, cap = case
+    q, k, v = qkv(shape, dtype, seed=sum(shape) + 1, device=card)
+    got = fa.launch_kernel(kernel, q, k, v, causal=causal, window=window,
+                           cap=cap)
+    torch.cuda.synchronize()
+    check_against_plain(got, q, k, v, case)
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(card):
@@ -159,4 +205,14 @@ def test_flash_kernel_refuses_what_it_does_not_take(card):
     big = torch.zeros(1, 4, 2, 264, device=card)
     with pytest.raises(ValueError):
         fa.flash_attention_bshd(big, big, big)
+    with pytest.raises(ValueError):                  # fp32 to wgmma
+        fa.launch_kernel(fa.SM90, q, k, v)
+    with pytest.raises(ValueError):                  # D % 16 != 0
+        odd = torch.zeros(1, 16, 2, 40, device=card, dtype=torch.bfloat16)
+        fa.launch_kernel(fa.SM90, odd, odd, odd)
+    flat = torch.zeros(2 * 16 * 2 * 32 + 1, device=card,
+                       dtype=torch.bfloat16)
+    off = flat[1:].view(2, 16, 2, 32)                # 2-byte aligned
+    with pytest.raises(ValueError):
+        fa.flash_attention_bshd(off, off, off)
     assert fa.launches == before

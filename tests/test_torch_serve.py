@@ -8,7 +8,7 @@ import sys
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from repro.launch import serve as ref_serve               # noqa: E402
 from repro_torch.launch import serve as port_serve        # noqa: E402
@@ -42,6 +42,19 @@ def test_serve_runs_on_the_card_by_default(monkeypatch):
     monkeypatch.setattr(port_serve.torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_serve.main(["--smoke"])
+
+
+def test_make_tokens_defaults_to_the_card(monkeypatch):
+    """``make_tokens`` puts the prompts where the model runs: on the card
+    unless the caller asks for the CPU, and it raises without a card."""
+    from repro_torch import configs as C
+    cfg = C.get_smoke("granite-8b")
+    monkeypatch.setattr(port_serve.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_serve.make_tokens(cfg, 2, 4)
+    tokens = port_serve.make_tokens(cfg, 2, 4, device="cpu")
+    assert tokens.device.type == "cpu" and tokens.dtype == torch.int64
+    assert tuple(tokens.shape) == (2, 4)
 
 
 def test_serve_steps_go_through_the_kernel_wrapper(monkeypatch):
