@@ -35,9 +35,22 @@ Phases, in order; any failed check exits nonzero and prints no result:
             the CUDA-core kernel, by the wrapper's counters and by the
             profiler's kernel names), 16 tokens
             generated, the LCAP invalidation loop over 2 replicas; then
-            flash-vs-naive and prefill/decode consistency of the logits.
+            flash-vs-naive and prefill/decode consistency of the logits;
+6. wire     the main path over the wire, on 4 MDT journals x 65,536
+            records from phase 4's generator: (a) ``LcapClusterService``
+            routing on the card (its distributor thread), the main path's
+            consumers in this process on the four shard ports over
+            127.0.0.1 TCP with v2 frames, with phase 4's checks, one
+            kernel launch per routing read, and a small run that must
+            deliver per group what the in-process run delivers; (b) four
+            spawned ``run_shard_daemon`` processes, each draining a
+            co-located robinhood group, fed deep-batched v2 offers by a
+            coordinator here that routes on the card, and an audit group
+            over the wire; records/s, routing seconds, wire bytes and
+            messages (``transport.instrument``) and the seconds in
+            ``msgpack_subset``.
 
-Then a JSON line of serve numbers, one of kernels, the card's
+Then a JSON line of serve numbers, one of wire numbers, one of kernels, the card's
 ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
 {...}}`` last.  Imports nothing of JAX, of the reference package or of
 msgpack.
@@ -50,6 +63,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -76,6 +90,10 @@ N_SHARDS = 4
 N_SLOTS = 64
 BATCH = 1024
 SLOTS_SWEEP = (1, 64, 65535, 65536, 1000003)
+#: phase 6: records per MDT journal over the wire, and its time limits
+WIRE_RECORDS_PER_MDT = 65_536
+WIRE_DEADLINE_S = 300.0
+DAEMON_START_S = 120.0
 EDGE_FIDS = [(0, 0, 0), (1, 0, 0), ((1 << 64) - 1, (1 << 32) - 1,
                                     (1 << 32) - 1), (1 << 63, 1, 2)]
 #: operation mix of the main path (percent)
@@ -385,36 +403,13 @@ def shard_of(stream, batch) -> int:
     return next(i for i, s in stream._children if s is child)
 
 
-def run_pipeline(journals: dict, device: str, n_slots: int = N_SLOTS,
-                 batch_size: int = BATCH):
-    """Drive the port's main path: cluster, subscriptions (all before
-    the first pump), pump + fetch + commit until the journals drain.
-    Returns (cluster, logs, deliveries, seconds, routing_seconds);
-    deliveries are (group, member, shard, pid, batch), routing_seconds
-    the host time spent in the cluster's routing calls (header rows to
-    the card, kernel, slots back)."""
+def subscribe_main_path(session) -> list:
+    """The main path's consumers on ``session`` (in process or over the
+    wire): robinhood x2, audit x2 (its types, the jobid projection) and
+    an ephemeral reader, as (group, member, stream)."""
     from repro_torch.core import records as T
-    from repro_torch.core.cluster import LcapCluster
-    from repro_torch.core.llog import from_packed
     from repro_torch.core.proxy import EPHEMERAL
-    from repro_torch.core.session import Subscription, connect
-
-    logs = {pid: from_packed(pid, buf, off, ln, first_index=1)
-            for pid, (buf, off, ln, _types) in journals.items()}
-    t0 = time.perf_counter()
-    cluster = LcapCluster(logs, n_shards=N_SHARDS, n_slots=n_slots,
-                          batch_size=batch_size, device=device)
-    routing = [0.0]
-    route = cluster.batch_slots
-
-    def timed_route(batch):
-        t = time.perf_counter()
-        out = route(batch)
-        routing[0] += time.perf_counter() - t
-        return out
-
-    cluster.batch_slots = timed_route
-    session = connect(cluster)
+    from repro_torch.core.session import Subscription
     audit = frozenset(getattr(T, name) for name in AUDIT)
     streams = []
     for k in range(2):
@@ -426,6 +421,45 @@ def run_pipeline(journals: dict, device: str, n_slots: int = N_SLOTS,
                          auto_commit=False))))
     streams.append(("reader", 0, session.subscribe(
         Subscription(mode=EPHEMERAL, auto_commit=False))))
+    return streams
+
+
+def timed_routing(cluster) -> list:
+    """Make ``cluster`` add the host seconds of its routing calls (header
+    rows to the card, kernel, slots back) to the returned one-element
+    list."""
+    routing = [0.0]
+    route = cluster.batch_slots
+
+    def timed_route(batch):
+        t = time.perf_counter()
+        out = route(batch)
+        routing[0] += time.perf_counter() - t
+        return out
+
+    cluster.batch_slots = timed_route
+    return routing
+
+
+def run_pipeline(journals: dict, device: str, n_slots: int = N_SLOTS,
+                 batch_size: int = BATCH):
+    """Drive the port's main path: cluster, subscriptions (all before
+    the first pump), pump + fetch + commit until the journals drain.
+    Returns (cluster, logs, deliveries, seconds, routing_seconds);
+    deliveries are (group, member, shard, pid, batch), routing_seconds
+    the host time spent in the cluster's routing calls (header rows to
+    the card, kernel, slots back)."""
+    from repro_torch.core.cluster import LcapCluster
+    from repro_torch.core.llog import from_packed
+    from repro_torch.core.session import connect
+
+    logs = {pid: from_packed(pid, buf, off, ln, first_index=1)
+            for pid, (buf, off, ln, _types) in journals.items()}
+    t0 = time.perf_counter()
+    cluster = LcapCluster(logs, n_shards=N_SHARDS, n_slots=n_slots,
+                          batch_size=batch_size, device=device)
+    routing = timed_routing(cluster)
+    streams = subscribe_main_path(connect(cluster))
     deliveries = []
     for _ in range(100_000):
         moved = cluster.pump()
@@ -536,6 +570,355 @@ def main_path_phase(seed: int) -> dict:
     return {"launches": launches, "reads": reads, "seconds": seconds,
             "records_per_s": rate, "routing_s": routing_s,
             "device_busy_ms": busy_ms}
+
+
+# ------------------------------------------------------------ phase 6: wire
+class WireMeter:
+    """What the wire moves in this process: frames and bytes by
+    direction, through ``transport.instrument`` (this object has the
+    registry surface it uses), and host seconds inside the framing's
+    ``msgpack_subset.packb``/``unpackb``."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.values = {}
+        self.pack_s = self.unpack_s = 0.0
+        self.packs = self.unpacks = 0
+
+    def counter(self, name, help_text, labels=()):
+        meter = self
+
+        class Family:
+            def labels(self, direction):
+                key = f"{name.split('_')[2]}_{direction}"
+                meter.values.setdefault(key, 0)
+
+                class Child:
+                    def inc(self, n=1):
+                        with meter._lock:
+                            meter.values[key] += n
+                return Child()
+        return Family()
+
+    def install(self) -> None:
+        from repro_torch.core import transport
+        transport.instrument(self)
+        packb, unpackb = transport.packb, transport.unpackb
+
+        def timed_packb(obj):
+            t = time.perf_counter()
+            out = packb(obj)
+            dt = time.perf_counter() - t
+            with self._lock:
+                self.pack_s += dt
+                self.packs += 1
+            return out
+
+        def timed_unpackb(blob):
+            t = time.perf_counter()
+            out = unpackb(blob)
+            dt = time.perf_counter() - t
+            with self._lock:
+                self.unpack_s += dt
+                self.unpacks += 1
+            return out
+
+        transport.packb, transport.unpackb = timed_packb, timed_unpackb
+
+    def take(self) -> dict:
+        """The counts since the last ``take``, and zero them."""
+        with self._lock:
+            out = dict(self.values, pack_s=self.pack_s,
+                       unpack_s=self.unpack_s, packs=self.packs,
+                       unpacks=self.unpacks)
+            self.values = {k: 0 for k in self.values}
+            self.pack_s = self.unpack_s = 0.0
+            self.packs = self.unpacks = 0
+        return out
+
+
+def trimmed(logs) -> bool:
+    return all(log.first_index == log.last_index + 1 for log in logs.values())
+
+
+def run_wire_service(journals: dict, device: str, n_slots: int = N_SLOTS,
+                     batch_size: int = BATCH):
+    """The main path served over the wire (phase 6a): the cluster's four
+    shards each behind its own ``LcapService`` port, routing by
+    ``LcapClusterService``'s distributor thread; the main path's
+    consumers in this process reach the shard ports over 127.0.0.1 TCP
+    through ``connect(service)``, v2 frames negotiated.  Every consumer
+    subscribes before the journals join the cluster (so before anything
+    is routed).  Returns (cluster, logs, deliveries, seconds,
+    routing_seconds) like ``run_pipeline``."""
+    from repro_torch.core import records as T
+    from repro_torch.core.cluster import LcapCluster, LcapClusterService
+    from repro_torch.core.llog import from_packed
+    from repro_torch.core.session import connect
+
+    logs = {pid: from_packed(pid, buf, off, ln, first_index=1)
+            for pid, (buf, off, ln, _types) in journals.items()}
+    cluster = LcapCluster({}, n_shards=N_SHARDS, n_slots=n_slots,
+                          batch_size=batch_size, device=device)
+    routing = timed_routing(cluster)
+    svc = LcapClusterService(cluster).start()
+    session = None
+    try:
+        session = connect(svc)
+        streams = subscribe_main_path(session)
+        for _group, _k, stream in streams:
+            for _i, child in stream._children:
+                check(child.session._backend.wire == T.WIRE_V2,
+                      "a wire consumer did not negotiate v2 frames")
+        t0 = time.perf_counter()
+        for pid, log in logs.items():
+            cluster.add_producer(pid, log)
+        deliveries = []
+        deadline = t0 + WIRE_DEADLINE_S
+        while True:
+            check(svc.failure is None,
+                  f"the distributor thread failed: {svc.failure!r}")
+            moved = 0
+            for group, k, stream in streams:
+                for pid, batch in stream.fetch(1 << 16):
+                    deliveries.append((group, k, shard_of(stream, batch),
+                                       pid, batch))
+                    moved += len(batch)
+                stream.commit()
+            if not moved and trimmed(logs):
+                break
+            check(time.perf_counter() < deadline, "the wire run did not "
+                  f"drain within {WIRE_DEADLINE_S} s")
+            if not moved:
+                time.sleep(0.001)
+        seconds = time.perf_counter() - t0
+        check(all(cluster.alive) and cluster.stats["shards_failed"] == 0,
+              "a shard failed over during the wire run")
+    finally:
+        if session is not None:
+            session.close()
+        svc.stop()
+    return cluster, logs, deliveries, seconds, routing[0]
+
+
+def run_wire_daemons(journals: dict, device: str, n_slots: int = N_SLOTS,
+                     batch_size: int = BATCH) -> dict:
+    """The main path over shard daemons (phase 6b): four
+    ``run_shard_daemon`` processes, each draining a co-located robinhood
+    group of two members; a coordinator in this process routes on
+    ``device`` and feeds them deep-batched v2 offers over
+    ``RemoteShard``s; an audit group consumes over the wire through
+    ``connect(addresses)``, subscribed before the first pump."""
+    import multiprocessing as mp
+    from repro_torch.core import records as T
+    from repro_torch.core.cluster import (LcapCluster, RemoteShard,
+                                          run_shard_daemon)
+    from repro_torch.core.llog import from_packed
+    from repro_torch.core.session import Subscription, connect
+
+    ctx = mp.get_context("spawn")
+    procs, conns = [], []
+    try:
+        t_spawn = time.perf_counter()
+        for i in range(N_SHARDS):
+            parent, child = ctx.Pipe()
+            p = ctx.Process(target=run_shard_daemon,
+                            args=(child, i, N_SHARDS),
+                            kwargs={"local_groups": [("robinhood", 2)]},
+                            daemon=True)
+            p.start()
+            procs.append(p)
+            conns.append(parent)
+        addrs = []
+        for conn in conns:
+            check(conn.poll(DAEMON_START_S), "a shard daemon did not report "
+                  f"its address within {DAEMON_START_S} s")
+            addrs.append(tuple(conn.recv()))
+        spawn_s = time.perf_counter() - t_spawn
+        logs = {pid: from_packed(pid, buf, off, ln, first_index=1)
+                for pid, (buf, off, ln, _types) in journals.items()}
+        session = connect(addrs)
+        audit = session.subscribe(Subscription(
+            group="audit", types=frozenset(getattr(T, n) for n in AUDIT),
+            flags=T.CLF_JOBID, auto_commit=False))
+        shards = [RemoteShard(a, index=i) for i, a in enumerate(addrs)]
+        cluster = LcapCluster(logs, shards=shards, n_slots=n_slots,
+                              batch_size=batch_size, device=device)
+        routing = timed_routing(cluster)
+        deliveries = []
+        t0 = time.perf_counter()
+        deadline = t0 + WIRE_DEADLINE_S
+        try:
+            while True:
+                moved = cluster.pump(pump_shards=False)
+                if not moved:
+                    cluster.collect_watermarks()
+                got = 0
+                for pid, batch in audit.fetch(1 << 16):
+                    deliveries.append(("audit", 0, shard_of(audit, batch),
+                                       pid, batch))
+                    got += len(batch)
+                audit.commit()
+                if not moved and not got and trimmed(logs):
+                    break
+                check(time.perf_counter() < deadline, "the daemon run did "
+                      f"not drain within {WIRE_DEADLINE_S} s")
+                if not moved and not got:
+                    time.sleep(0.001)
+            seconds = time.perf_counter() - t0
+            caps = [shard.caps() for shard in shards]
+            check(all(cluster.alive) and cluster.stats["shards_failed"] == 0,
+                  "a shard daemon failed over during the run")
+        finally:
+            session.close()
+            cluster.close()
+        drained = []
+        for conn in conns:
+            conn.send("stop")
+            check(conn.poll(DAEMON_START_S), "a shard daemon did not report "
+                  "its drained count")
+            drained.append(conn.recv())
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    return {"cluster": cluster, "logs": logs, "deliveries": deliveries,
+            "seconds": seconds, "routing_s": routing[0], "caps": caps,
+            "drained": drained, "spawn_s": spawn_s}
+
+
+def verify_daemons(run: dict, journals: dict, n_slots: int) -> None:
+    """Phase 6b's checks: the daemons drained every record once between
+    them, audit saw every record of its types exactly once, each from
+    its slot's owner, every peer deep v2, every journal trimmed."""
+    from repro_torch.core import records as T
+    from repro_torch.kernels import stream_ops
+    total = sum(len(j[1]) for j in journals.values())
+    check(sum(run["drained"]) == total, f"the daemons drained "
+          f"{run['drained']} records, not {total} between them")
+    check(all(c == {"wire": T.WIRE_V2, "deep": True} for c in run["caps"]),
+          f"shard daemon caps {run['caps']}")
+    audit = np.array([getattr(T, name) for name in AUDIT])
+    seen = {pid: np.zeros(len(j[1]) + 1, dtype=np.int64)
+            for pid, j in journals.items()}
+    owner = run["cluster"].routing.owner_array()
+    for _g, _k, shard, pid, batch in run["deliveries"]:
+        np.add.at(seen[pid], batch.indices_np().astype(np.int64), 1)
+        rows = torch.from_numpy(batch.header_rows().copy())
+        slots = stream_ops.fid_slots_rows_reference(rows, n_slots).numpy()
+        check(bool((owner[slots] == shard).all()),
+              f"shard {shard} delivered records of slots it does not own")
+    for pid, (_buf, _off, _ln, types) in journals.items():
+        check(np.array_equal(seen[pid][1:],
+                             np.isin(types, audit).astype(np.int64)),
+              f"audit over the wire did not see every {pid} record of its "
+              "types exactly once")
+    for pid, log in run["logs"].items():
+        check(log.first_index == log.last_index + 1, f"{pid} not trimmed")
+
+
+def group_records(deliveries) -> dict:
+    """group -> {(pid, index): packed record bytes}, checking that no
+    group got a record twice."""
+    out = {}
+    for group, _k, _shard, pid, batch in deliveries:
+        per = out.setdefault(group, {})
+        for i, rec in zip(batch.indices(), batch):
+            check((pid, i) not in per, f"{group} got {pid} {i} twice")
+            per[(pid, i)] = bytes(rec)
+    return out
+
+
+def wire_phase(seed: int, smi: str) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import stream_ops
+    meter = WireMeter()
+    meter.install()
+    journals = {f"mdt{m}": make_journal_arrays(m, WIRE_RECORDS_PER_MDT, seed)
+                for m in range(N_MDTS)}
+    total = N_MDTS * WIRE_RECORDS_PER_MDT
+    out = {"records": total}
+    # (a) the cluster service
+    meter.take()
+    stream_ops.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cluster, logs, deliveries, seconds, routing_s = run_wire_service(
+            journals, "cuda")
+    launches, reads = stream_ops.launches, cluster.routing_reads
+    wire = meter.take()
+    facts = verify_pipeline(cluster, logs, deliveries, journals, N_SLOTS)
+    check(launches > 0, "the wire service launched no fid_slots kernel")
+    check(launches == reads, f"wire service: fid_slots launches {launches} "
+          f"!= non-empty routing reads {reads}")
+    busy_ms = device_busy_ms(prof)
+    out["service"] = {"seconds": seconds, "records_per_s": total / seconds,
+                      "routing_s": routing_s, "launches": launches,
+                      "routing_reads": reads, "device_busy_ms": busy_ms,
+                      "idle_share": 1 - busy_ms / 1e3 / seconds,
+                      "wire": wire, **facts}
+    log_wire("wire (a) cluster service", out["service"], total, smi)
+    log("wire (a): exactly once per group over TCP, every record on its "
+        "slot's owner, ephemeral delivered + dropped = total, all journals "
+        "trimmed")
+    # (a) small run: over the wire as in process, per group
+    small = {f"mdt{m}": make_journal_arrays(m, 4096, seed + 1)
+             for m in range(N_MDTS)}
+    c, lg, dl, _s, _r = run_pipeline(small, "cuda", batch_size=256)
+    verify_pipeline(c, lg, dl, small, N_SLOTS)
+    wc, wlg, wdl, _s, _r = run_wire_service(small, "cuda", batch_size=256)
+    verify_pipeline(wc, wlg, wdl, small, N_SLOTS)
+    in_process, over_wire = group_records(dl), group_records(wdl)
+    check(over_wire == in_process, "the wire run delivered other records "
+          "than the in-process run on the same journals")
+    log(f"wire (a): small run (4 x 4096 records) delivers per group the same "
+        f"(pid, index) -> packed bytes over the wire as in process "
+        f"({sum(len(v) for v in over_wire.values())} deliveries)")
+    # (b) shard daemons
+    meter.take()
+    stream_ops.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run = run_wire_daemons(journals, "cuda")
+    launches, reads = stream_ops.launches, run["cluster"].routing_reads
+    wire = meter.take()
+    verify_daemons(run, journals, N_SLOTS)
+    check(launches > 0, "the daemon coordinator launched no fid_slots kernel")
+    check(launches == reads, f"daemons: fid_slots launches {launches} != "
+          f"non-empty routing reads {reads}")
+    busy_ms = device_busy_ms(prof)
+    seconds = run["seconds"]
+    out["daemons"] = {"seconds": seconds, "records_per_s": total / seconds,
+                      "routing_s": run["routing_s"], "launches": launches,
+                      "routing_reads": reads, "device_busy_ms": busy_ms,
+                      "idle_share": 1 - busy_ms / 1e3 / seconds,
+                      "drained": run["drained"], "spawn_s": run["spawn_s"],
+                      "wire": wire}
+    log_wire("wire (b) shard daemons", out["daemons"], total, smi)
+    log(f"wire (b): daemons drained {run['drained']} (sum {total}), audit "
+        f"exactly once over TCP from each slot's owner, caps "
+        f"{run['caps'][0]} on all {N_SHARDS}, all journals trimmed; "
+        f"daemons up in {run['spawn_s']:.3f} s (spawn, not timed above)")
+    return out
+
+
+def log_wire(label: str, r: dict, total: int, smi: str) -> None:
+    w = r["wire"]
+    log(f"{label}: {total} records in {r['seconds']:.3f} s end to end, "
+        f"{r['records_per_s']:.1f} records/s [{smi}]")
+    log(f"{label}: routing calls {r['routing_s']:.3f} s of the host's "
+        f"{r['seconds']:.3f} s ({100 * r['routing_s'] / r['seconds']:.3f} %), "
+        f"routing reads {r['routing_reads']}, fid_slots launches "
+        f"{r['launches']}; device busy {r['device_busy_ms']:.3f} ms by "
+        f"torch.profiler, idle {100 * r['idle_share']:.3f} % [{smi}]")
+    log(f"{label}: this process sent {w.get('messages_sent', 0)} messages / "
+        f"{w.get('bytes_sent', 0)} bytes and received "
+        f"{w.get('messages_received', 0)} / {w.get('bytes_received', 0)} "
+        f"bytes (transport.instrument); msgpack_subset packb "
+        f"{w['pack_s']:.3f} s over {w['packs']} calls, unpackb "
+        f"{w['unpack_s']:.3f} s over {w['unpacks']} calls "
+        f"({100 * (w['pack_s'] + w['unpack_s']) / r['seconds']:.3f} % of "
+        f"the run's host seconds, summed over threads) [{smi}]")
 
 
 # ------------------------------------------------- phase 3: flash attention
@@ -886,6 +1269,7 @@ def main() -> int:
     fl = flash_phase(args.seed)
     main = main_path_phase(args.seed)
     sv = serve_phase(args.seed)
+    wire = wire_phase(args.seed, smi)
     at = k["sizes"][BATCH]
     kernels = {"kernels": [{
         "name": "fid_slots",
@@ -894,6 +1278,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/stream_ops.py:119",
         "matched": k["max_abs_err"] == 0,
         "launches": main["launches"],
+        # phase 6's own runs, each counted from 0 like the main path's
+        "wire_launches": {"cluster_service": wire["service"]["launches"],
+                          "shard_daemons": wire["daemons"]["launches"]},
         "max_abs_err": k["max_abs_err"],
         "ms": at["ms"], "plain_ms": at["plain_ms"],
         "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
@@ -939,6 +1326,7 @@ def main() -> int:
                             "routing_s": main["routing_s"],
                             "device_busy_ms": main["device_busy_ms"]}
     print(json.dumps({"serve": sv}), flush=True)
+    print(json.dumps({"wire": wire}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

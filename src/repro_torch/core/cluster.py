@@ -47,13 +47,13 @@ shards behind one coordinator:
   memory, not the journal, until consumed: a *second* failure inside
   that window can lose them — the documented cascading-failure caveat.)
 
-Shards are in-process (``LocalShard`` over ``LcapProxy``); the
-reference's daemon deployment (``RemoteShard``, ``run_shard_daemon``,
-``LcapClusterService``) needs the wire and is not part of this port
-yet.  Consumers never talk to the coordinator:
-``session.connect(cluster)`` fans a ``Subscription`` in from every
-shard — one logical stream, per-(shard, producer) cursors, commits
-routed back to the owning shard (session.py, ``FanInStream``).
+Shards are either in-process (``LocalShard`` over ``LcapProxy``) or
+independent daemons (``RemoteShard`` over the wire verbs ``add_source``
+/ ``offer`` / ``watermarks``; see ``run_shard_daemon``).  Consumers
+never talk to the coordinator: ``session.connect(cluster)`` (or a list
+of shard addresses) fans a ``Subscription`` in from every shard — one
+logical stream, per-(shard, producer) cursors, commits routed back to
+the owning shard (session.py, ``FanInStream``).
 
 Routing runs on the card: ``SlotRouter`` copies each journal read's
 64-byte header rows to the GPU through a pinned staging buffer and
@@ -78,6 +78,7 @@ from .history import JournalReplayReader
 from .llog import Llog
 from .proxy import LcapProxy, PushSource
 from .routing import RoutingTable
+from .transport import RpcClient
 
 DEFAULT_SLOTS = 64
 
@@ -288,6 +289,120 @@ class LocalShard:
         pass
 
 
+class RemoteShard:
+    """A shard running as its own daemon, driven over the wire verbs.
+
+    Offers are *deep-batched*: a whole routing round travels as one
+    ``offer_many`` call carrying v2 (column-bearing) frames, and the
+    reply piggybacks the shard's per-journal watermarks — no separate
+    watermark round-trip while traffic flows.  An old daemon (no
+    ``caps`` verb) falls back to the legacy pipelined per-batch offers
+    with v1 frames.
+    """
+
+    #: offer replies piggyback watermarks — skip the separate poll
+    remote = True
+
+    def __init__(self, address, index: int = 0):
+        self.address = address
+        self.index = index
+        self.rpc = RpcClient(tuple(address))
+        self._watermarks: Dict[str, int] = {}
+        self._caps: Optional[Dict] = None
+
+    def caps(self) -> Dict:
+        """Peer capabilities, probed once per connection: record-frame
+        generation (``"wire"``) and deep-batched offer support
+        (``"deep"``).  An old daemon answers the ``caps`` verb with an
+        unknown-op error reply — treated as a v1, shallow peer."""
+        c = self._caps
+        if c is None:
+            reply = self.rpc.call({"op": "caps"})
+            if reply.get("err"):
+                c = {"wire": R.WIRE_V1, "deep": False}
+            else:
+                c = {"wire": min(int(reply.get("wire", R.WIRE_V1)),
+                                 R.WIRE_V2),
+                     "deep": bool(reply.get("deep"))}
+            self._caps = c
+        return c
+
+    def add_source(self, pid: str, first: int = 1) -> None:
+        self._call({"op": "add_source", "pid": pid, "first": first})
+
+    def set_replay_reader(self, pid: str, reader) -> None:
+        # a detached daemon cannot call back into the coordinator's
+        # journals; replay-bootstrap subscriptions are served by
+        # in-process shards (LcapCluster / LcapClusterService)
+        pass
+
+    def rewind_replays(self) -> None:
+        pass                              # no replay support (see above)
+
+    def offer_many(self, offers: Sequence[Tuple[str, R.RecordBatch, int]],
+                   ) -> Dict[str, int]:
+        self.offer_send(offers)
+        return self.offer_recv()
+
+    def offer_send(self, offers: Sequence[Tuple[str, R.RecordBatch, int]],
+                   ) -> None:
+        """Fire this shard's burst without waiting, so every shard of
+        the cluster ingests its share of a routing round concurrently;
+        ``offer_recv`` drains the replies.  A deep-capable peer gets
+        the whole round as one ``offer_many`` call (header columns ride
+        the v2 frames); an old peer gets pipelined per-batch offers."""
+        caps = self.caps()
+        if caps["deep"]:
+            wire = caps["wire"]
+            self.rpc.send_request(
+                {"op": "offer_many",
+                 "offers": [(pid, batch.to_wire(wire), hi)
+                            for pid, batch, hi in offers]})
+            self._inflight = 1
+            return
+        self._inflight = 0
+        for pid, batch, hi in offers:
+            self.rpc.send_request({"op": "offer", "pid": pid,
+                                   "blob": batch.to_wire(), "hi": hi})
+            self._inflight += 1
+
+    def offer_recv(self) -> Dict[str, int]:
+        n, self._inflight = getattr(self, "_inflight", 0), 0
+        for _ in range(n):
+            reply = self.rpc.recv_reply()
+            if reply.get("err"):
+                raise ClusterError(reply["err"])
+            self._watermarks.update(reply.get("watermarks") or {})
+        return dict(self._watermarks)
+
+    def watermarks(self) -> Dict[str, int]:
+        reply = self._call({"op": "watermarks"})
+        self._watermarks.update(reply.get("watermarks") or {})
+        return dict(self._watermarks)
+
+    def metrics(self) -> Dict[str, dict]:
+        return self._call({"op": "metrics"}).get("metrics") or {}
+
+    def lag(self) -> Dict[str, Dict[str, Dict[str, int]]]:
+        return self._call({"op": "lag"}).get("lag") or {}
+
+    def pump(self) -> int:
+        return 0                          # the daemon's poller dispatches
+
+    def _call(self, msg):
+        reply = self.rpc.call(msg)
+        if reply.get("err"):
+            raise ClusterError(reply["err"])
+        return reply
+
+    def backend(self):
+        from .session import _WireBackend
+        return _WireBackend(tuple(self.address))
+
+    def close(self) -> None:
+        self.rpc.close()
+
+
 class _Migration:
     """The one in-flight graceful migration: which slots are draining,
     where they are going, which shards must drain, and the per-producer
@@ -309,9 +424,10 @@ class LcapCluster:
 
     ``producers`` are registered once, with the coordinator.  Shards
     are built in-process (``n_shards``) unless explicit handles are
-    passed (``shards=[LocalShard(proxy), ...]``).  ``device`` is where
-    routing hashes run: the card by default (``"cuda"``; raises when
-    there is none), ``"cpu"`` for the kernel's plain version.
+    passed (``shards=[RemoteShard(addr), ...]`` for daemons).
+    ``device`` is where routing hashes run: the card by default
+    (``"cuda"``; raises when there is none), ``"cpu"`` for the kernel's
+    plain version.  Shard daemons never route, so they take no device.
     """
 
     def __init__(self, producers: Dict[str, Llog], n_shards: int = 2,
@@ -985,3 +1101,176 @@ class LcapCluster:
                 shard.close()
             except OSError:
                 pass
+
+
+# ---------------------------------------------------------------------------
+# Daemon deployment.
+# ---------------------------------------------------------------------------
+def run_shard_daemon(conn, shard_index: int, shard_count: int,
+                     host: str = "127.0.0.1", port: int = 0,
+                     poll_interval: float = 0.002,
+                     proxy_kwargs: Optional[dict] = None,
+                     local_groups: Optional[Sequence[Tuple[str, int]]] = None,
+                     local_flags: Optional[int] = None) -> None:
+    """Entry point for a shard daemon process (multiprocessing target).
+
+    Builds an empty push-fed ``LcapProxy`` wrapped in an ``LcapService``
+    (so the shard serves subscribe/fetch/commit *and* the cluster verbs
+    on its own port), reports ``(host, port)`` through ``conn``, then
+    blocks until the parent sends anything (or the pipe closes).
+
+    ``local_groups`` optionally co-locates consumers with the shard
+    (the paper's policy-engine-per-host deployment, §III): for each
+    ``(group, members)`` the daemon subscribes that many members
+    through the in-process Session API and drains them in a local
+    thread — records then never cross the wire on the consume side.
+    On shutdown the daemon reports the drained record count back
+    through ``conn``.
+    """
+    import sys
+    from .server import LcapService
+    from .session import Subscription, connect
+    # a shard daemon interleaves three threads (poller dispatch, RPC
+    # handlers, optional local drainer); the default 5 ms GIL switch
+    # interval starves the short-lived offer/fetch handlers behind the
+    # compute-bound poller
+    sys.setswitchinterval(0.0005)
+    proxy = LcapProxy({}, **(proxy_kwargs or {}))
+    service = LcapService(proxy, host=host, port=port,
+                          poll_interval=poll_interval,
+                          shard_index=shard_index, shard_count=shard_count)
+    service.start()
+    stop = threading.Event()
+    drained = [0]
+    drainer = None
+    if local_groups:
+        session = connect(proxy)
+        streams = [session.subscribe(Subscription(
+            group=g, flags=local_flags, auto_commit=False))
+            for g, members in local_groups for _ in range(members)]
+
+        def _drain() -> None:
+            import time
+            while not stop.is_set():
+                moved = 0
+                for stream in streams:
+                    for _pid, batch in stream.fetch():
+                        moved += len(batch)
+                    stream.commit()
+                drained[0] += moved
+                if not moved:
+                    time.sleep(poll_interval)
+
+        drainer = threading.Thread(target=_drain, daemon=True)
+        drainer.start()
+    try:
+        conn.send(tuple(service.address))
+        try:
+            conn.recv()                   # parent says stop (or EOF)
+        except EOFError:
+            pass
+    finally:
+        stop.set()
+        if drainer is not None:
+            drainer.join(timeout=5)
+            try:
+                conn.send(drained[0])
+            except (OSError, BrokenPipeError):
+                pass
+        service.stop()
+
+
+class LcapClusterService:
+    """The cluster as a set of daemons in one process: each in-process
+    shard gets its own ``LcapService`` (own port, own poller — "each
+    shard runs as its own daemon"), and a distributor thread runs the
+    coordinator's routing/ack loop.  Consumers connect to
+    ``addresses`` (``session.connect(service)`` fans in)."""
+
+    def __init__(self, cluster: LcapCluster, host: str = "127.0.0.1",
+                 poll_interval: float = 0.002):
+        from .server import LcapService
+        self.cluster = cluster
+        self.host = host
+        self.poll_interval = poll_interval
+        self.services = []
+        self._started = False
+        for i, shard in enumerate(cluster.shards):
+            if not isinstance(shard, LocalShard):
+                raise ClusterError("LcapClusterService hosts in-process "
+                                   "shards; remote shards already are "
+                                   "daemons")
+            self.services.append(LcapService(
+                shard.proxy, host=host, port=0,
+                poll_interval=poll_interval,
+                shard_index=i, shard_count=len(cluster.shards),
+                cluster_info=self.cluster_info))
+        self._stop = threading.Event()
+        #: the exception that stopped the distributor thread, if any
+        self.failure: Optional[BaseException] = None
+        self._distributor = threading.Thread(target=self._route_loop,
+                                             daemon=True)
+
+    @property
+    def addresses(self) -> List[Tuple[str, int]]:
+        return [svc.address for svc in self.services]
+
+    def cluster_info(self) -> Dict:
+        """The topology snapshot every shard service piggybacks on its
+        replies and serves through the ``topology`` verb: the routing
+        epoch, the shard count, and each shard's address — a consumer
+        connected to *any* shard can re-resolve the whole fan-in."""
+        return {"epoch": self.cluster.routing.epoch,
+                "shards": len(self.cluster.shards),
+                "addresses": [list(svc.address) for svc in self.services]}
+
+    def add_shard(self, **proxy_kwargs) -> int:
+        """Elastically grow the service: a fresh in-process shard joins
+        the cluster (``LcapCluster.add_shard``) and immediately serves
+        its own port.  Live consumers discover it through the epoch
+        bump piggybacked on their next reply."""
+        from .server import LcapService
+        i = self.cluster.add_shard(**proxy_kwargs)
+        svc = LcapService(self.cluster.shards[i].proxy, host=self.host,
+                          port=0, poll_interval=self.poll_interval,
+                          shard_index=i,
+                          shard_count=len(self.cluster.shards),
+                          cluster_info=self.cluster_info)
+        self.services.append(svc)
+        if self._started:
+            svc.start()
+        return i
+
+    def _route_loop(self) -> None:
+        import time
+        try:
+            while not self._stop.is_set():
+                moved = self.cluster.pump(pump_shards=False)
+                if not moved:
+                    # idle: no offer replies to piggyback watermarks on,
+                    # so poll them explicitly — the collective ack
+                    # converges once the consumers drain their backlog
+                    self.cluster.collect_watermarks()
+                    time.sleep(self.poll_interval)
+        except BaseException as exc:
+            # a routing failure (a kernel that does not build or launch)
+            # stops the distributor; kept for the owner to raise
+            self.failure = exc
+            raise
+
+    def start(self) -> "LcapClusterService":
+        # the distributor thread routes on the cluster's device: build
+        # and load the kernel here, before any thread can race to it
+        if self.cluster.device.type == "cuda":
+            stream_ops.load()
+        for svc in self.services:
+            svc.start()
+        self._started = True
+        self._distributor.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._distributor.join(timeout=5)
+        for svc in self.services:
+            svc.stop()

@@ -1,8 +1,7 @@
 """Unified changelog client API: Subscription / Session / Stream.
 
-One consumer-facing surface over the in-process bindings (a proxy or
-a sharded cluster).  The reference's TCP binding (``_WireBackend``,
-address targets) needs the wire and is not part of this port yet:
+One consumer-facing surface over both bindings (in-process proxy and
+TCP), replacing the ``LocalReader``/``RemoteReader`` split:
 
 - a ``Subscription`` declares *what* to consume: group, optional durable
   consumer name, delivery mode, §IV-A field projection (``flags``) and
@@ -10,8 +9,10 @@ address targets) needs the wire and is not part of this port yet:
   ``LcapProxy._dispatch`` — filtered records are never copied into the
   consumer's outbox, extending the paper's "remote remap" idea from
   fields to whole records;
-- a ``Session`` is a connection: ``connect(proxy_or_cluster)`` returns
-  one object with one implementation, backed by the in-process proxy;
+- a ``Session`` is a connection: ``connect(proxy_or_address)`` returns
+  one object with one implementation, backed by either the in-process
+  proxy or the wire protocol (``subscribe``/``resume``/``commit``
+  verbs, versioned messages);
 - a ``Stream`` is a live subscription: iterate it for ``(producer,
   RecordBatch)`` pairs with per-producer cursor tracking and automatic
   batched acknowledgement (commit-on-iterate), or drive ``fetch()`` /
@@ -23,27 +24,30 @@ their unacked records and ack watermark under ``(group, name)``, and
 same name) picks up exactly at the cursor — the stream's
 ``resume_token`` reports the per-producer watermark that was restored.
 
-    session = lcap.connect(proxy)                # or connect(cluster)
+    session = lcap.connect(service.address)      # or connect(proxy)
     stream = session.subscribe(
         "ckpt", name="committer-0", types={R.CL_CKPT_WRITE})
     for pid, batch in stream:                    # auto-commits batches
         handle(pid, batch)
 
 Failures surface as typed exceptions (``UnknownConsumerError``,
-``SubscriptionError``), never as error strings.
+``SubscriptionError``) on both bindings, never as error strings.
 """
 
 from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass, replace
-from typing import Deque, Dict, Iterator, List, Optional, Tuple, Union
+from typing import Any, Deque, Dict, Iterator, List, Optional, Tuple, Union
 
 from . import records as R
 from .errors import (SessionError, SubscriptionError,  # noqa: F401 (re-export)
-                     TenantError, UnknownConsumerError)
+                     TenantError, UnknownConsumerError, raise_reply_error)
 from .proxy import EPHEMERAL, PERSISTENT, LcapProxy
 from .tenancy import TenantPrincipal
+from .transport import PROTOCOL_VERSION, RpcClient
+
+Address = Union[str, Tuple[str, int]]
 
 
 @dataclass(frozen=True)
@@ -101,10 +105,9 @@ class Subscription:
 
 
 # ---------------------------------------------------------------------------
-# One Session implementation over a backend that speaks attach / fetch /
-# commit / unsubscribe / disconnect.  The in-process backend calls the
-# proxy directly; the reference's wire backend frames the same verbs
-# over TCP and arrives with the transport port.
+# One Session implementation, two backends.  A backend speaks attach /
+# fetch / commit / unsubscribe / disconnect — the in-process one calls
+# the proxy directly, the wire one frames the same verbs over TCP.
 # ---------------------------------------------------------------------------
 class _LocalBackend:
     def __init__(self, proxy: LcapProxy):
@@ -147,6 +150,96 @@ class _LocalBackend:
 
     def close(self) -> None:
         pass
+
+
+class _WireBackend:
+    def __init__(self, address: Tuple[str, int]):
+        self.rpc = RpcClient(address)
+        #: record-frame generation the server will emit, learned from
+        #: the subscribe/resume reply (v1 until negotiated)
+        self.wire = R.WIRE_V1
+        #: highest routing epoch piggybacked on any reply from this
+        #: shard (0 until a topology-aware peer stamps one); the fan-in
+        #: layer watches it to detect topology changes mid-stream
+        self.epoch = 0
+
+    def _call(self, msg: Dict[str, Any]) -> Dict[str, Any]:
+        msg.setdefault("v", PROTOCOL_VERSION)
+        reply = self.rpc.call(msg)
+        raise_reply_error(reply)
+        e = reply.get(R.CAP_EPOCH)
+        if e is not None and int(e) > self.epoch:
+            self.epoch = int(e)
+        return reply
+
+    def topology(self) -> Optional[Dict[str, Any]]:
+        """The cluster topology snapshot (epoch, shard count, shard
+        addresses) served by a topology-aware shard; None when the
+        peer does not speak the verb."""
+        try:
+            return self._call({"op": "topology"})
+        except SessionError:
+            return None
+
+    def attach(self, spec: Subscription,
+               resume: Optional[bool] = None) -> Dict:
+        reply = self._call({
+            "op": "resume" if resume else "subscribe",
+            "group": spec.group, "name": spec.name, "mode": spec.mode,
+            "flags": spec.flags, "resume": resume, "replay": spec.replay,
+            "types": sorted(spec.types) if spec.types is not None else None,
+            "tenant": spec.tenant.to_wire() if spec.tenant is not None
+            else None,
+            # offer the column-bearing v2 record frame; an old server
+            # ignores the key and keeps sending v1 (from_wire sniffs
+            # the frame magic, so either way decodes transparently)
+            "wire": R.WIRE_V2,
+        })
+        self.wire = int(reply.get("wire", R.WIRE_V1))
+        return {"cid": reply["cid"], "resumed": reply.get("resumed", False),
+                "flags": reply.get("flags"),
+                "token": reply.get("token") or {},
+                "replay": reply.get("replay", False)}
+
+    def fetch(self, cid: str, max_records: int,
+              ) -> List[Tuple[str, R.RecordBatch]]:
+        reply = self._call({"op": "fetch", "cid": cid, "max": max_records})
+        return [(pid, R.RecordBatch.from_wire(blob))
+                for pid, blob in reply["batches"]]
+
+    def fetch_replay(self, cid: str, max_records: int,
+                     ) -> Tuple[List[Tuple[str, R.RecordBatch]], bool]:
+        reply = self._call({"op": "fetch_replay", "cid": cid,
+                            "max": max_records})
+        return ([(pid, R.RecordBatch.from_wire(blob))
+                 for pid, blob in reply["batches"]], reply["done"])
+
+    def commit(self, cid: str, acks: Dict[str, List[int]]) -> None:
+        self._call({"op": "commit", "cid": cid,
+                    "acks": {pid: list(ix) for pid, ix in acks.items()}})
+
+    def unsubscribe(self, cid: str) -> None:
+        self._call({"op": "close", "cid": cid})
+
+    def disconnect(self, cid: str) -> None:
+        self._call({"op": "detach", "cid": cid})
+
+    def crash(self, cid: str) -> None:
+        # simulate a crash: drop the socket without deregistering; the
+        # service's disconnect hook parks (durable) or fails (anonymous)
+        self.rpc.close()
+
+    def stats(self) -> Dict:
+        return self._call({"op": "stats"})["stats"]
+
+    def metrics(self) -> Dict:
+        return self._call({"op": "metrics"})["metrics"]
+
+    def lag(self) -> Dict:
+        return self._call({"op": "lag"})["lag"]
+
+    def close(self) -> None:
+        self.rpc.close()
 
 
 class Stream:
@@ -337,9 +430,11 @@ class Stream:
             self.session._forget(self)
 
     def close(self, failed: bool = False) -> None:
-        """Deregister.  ``failed=True`` simulates a crash instead (an
-        in-process consumer just vanishes: its backlog is
-        redelivered)."""
+        """Deregister.  ``failed=True`` simulates a crash instead; on
+        the wire binding that drops the Session's socket — taking every
+        sibling stream of the same Session down with it, exactly like a
+        real process death (use one Session per consumer when streams
+        must fail independently)."""
         if self._closed:
             return
         self._closed = True
@@ -585,19 +680,28 @@ class ClusterSession:
     shard, one declarative surface.  ``subscribe``/``resume`` return a
     ``FanInStream`` that spans every live shard.
 
-    The session is *topology-aware*: it reports the cluster's current
-    routing epoch (``current_epoch``) and grows its shard set when the
-    cluster does (``_ensure_sessions``), reading both straight off the
-    in-process coordinator's routing table (``cluster=``).  The
-    reference's wire discovery paths (a ``topology`` callable, epochs
-    piggybacked on shard replies) arrive with the transport port.
+    The session is *topology-aware*: it can report the cluster's
+    current routing epoch (``current_epoch``) and grow its shard set
+    when the cluster does (``_ensure_sessions``).  Three discovery
+    paths, in order of directness:
+
+    - ``cluster=``   in-process ``LcapCluster`` — epoch and shard list
+      read straight off the coordinator's routing table;
+    - ``topology=``  a callable returning ``{"epoch", "shards",
+      "addresses"}`` (``LcapClusterService.cluster_info``);
+    - neither        the highest epoch piggybacked on any shard reply,
+      with the ``topology`` wire verb probed for addresses when a bump
+      is seen (falls back to a static shard set against pre-epoch
+      daemons).
     """
 
     def __init__(self, sessions: List[Tuple[int, Session]],
-                 alive=None, cluster=None):
+                 alive=None, cluster=None, topology=None):
         self._sessions = list(sessions)
         self._alive = alive                  # callable: shard index -> bool
         self._cluster = cluster              # in-process LcapCluster
+        self._topology = topology            # callable -> topology snapshot
+        self._topology_unsupported = False
 
     def _shard_alive(self, index: int) -> bool:
         if self._alive is not None:
@@ -609,20 +713,65 @@ class ClusterSession:
 
     # -- topology ------------------------------------------------------------
     def current_epoch(self) -> int:
-        """The cluster's routing epoch (0 without a coordinator)."""
+        """The cluster's routing epoch as this session can best see it
+        (0 against a target with no epoch source at all)."""
         if self._cluster is not None:
             return self._cluster.routing.epoch
-        return 0
+        if self._topology is not None:
+            try:
+                return int(self._topology()["epoch"])
+            except (ConnectionError, OSError, KeyError, TypeError):
+                pass
+        # piggybacked epochs: the max any shard stamped on a reply
+        return max((getattr(sess._backend, "epoch", 0)
+                    for _i, sess in self._sessions), default=0)
+
+    def _topology_snapshot(self) -> Optional[Dict]:
+        """Current ``{"epoch", "shards", "addresses"}``, or None when
+        no discovery path works (static wire shard set)."""
+        if self._topology is not None:
+            try:
+                return self._topology()
+            except (ConnectionError, OSError):
+                return None
+        if self._topology_unsupported:
+            return None
+        for i, sess in self._sessions:
+            if not self._shard_alive(i):
+                continue
+            probe = getattr(sess._backend, "topology", None)
+            if probe is None:                # in-process backend
+                self._topology_unsupported = True
+                return None
+            try:
+                reply = probe()
+            except (ConnectionError, OSError):
+                continue
+            if reply is None:                # pre-epoch daemon
+                self._topology_unsupported = True
+                return None
+            return reply
+        return None
 
     def _ensure_sessions(self) -> None:
         """Open child sessions for shards that joined the cluster after
         this session connected (shard add / split)."""
-        if self._cluster is None:
-            return
         have = {i for i, _ in self._sessions}
-        for i, shard in enumerate(self._cluster.shards):
-            if i not in have and self._cluster.alive[i]:
-                self._sessions.append((i, Session(shard.backend())))
+        if self._cluster is not None:
+            for i, shard in enumerate(self._cluster.shards):
+                if i not in have and self._cluster.alive[i]:
+                    self._sessions.append((i, Session(shard.backend())))
+            return
+        info = self._topology_snapshot()
+        if not info:
+            return
+        for i, addr in enumerate(info.get("addresses") or []):
+            if i not in have:
+                try:
+                    backend = _WireBackend(_parse_address(addr))
+                except (ConnectionError, OSError):
+                    continue
+                self._sessions.append((i, Session(backend)))
 
     def subscribe(self, subscription: Union[Subscription, str, None] = None,
                   *, resume: Optional[bool] = None,
@@ -775,7 +924,7 @@ class Session:
 
     def metrics(self) -> Dict:
         """Typed metrics snapshot from the proxy's attached registry
-        (``{}`` when no registry is attached)."""
+        (``{}`` when no registry is attached); works over the wire."""
         return self._backend.metrics()
 
     def lag(self) -> Dict:
@@ -800,23 +949,30 @@ class Session:
         self.close()
 
 
-def connect(target: Union[LcapProxy, "LcapCluster"],
+def _parse_address(address) -> Tuple[str, int]:
+    if isinstance(address, str):
+        host, _, port = address.rpartition(":")
+        return (host, int(port))
+    return tuple(address)
+
+
+def connect(target: Union[LcapProxy, "LcapService", "LcapCluster",
+                          "LcapClusterService", Address, List[Address]],
             ) -> Union[Session, ClusterSession]:
-    """Open a ``Session`` (or, for a sharded cluster, a
-    ``ClusterSession`` that transparently fans subscriptions in from
-    every shard):
+    """Open a ``Session`` (or, for sharded targets, a ``ClusterSession``
+    that transparently fans subscriptions in from every shard) — one
+    client API over every binding:
 
     - ``LcapProxy``                  in-process, single proxy
+    - ``LcapService`` / ``(host, port)`` / ``"host:port"``   wire, single
     - ``LcapCluster``                in-process shards, fan-in
+    - ``LcapClusterService``         its shard daemons' addresses, fan-in
+    - a *list* of addresses          one wire session per shard, fan-in
 
-    The reference's wire targets (``LcapService``, ``(host, port)``,
-    ``"host:port"``, ``LcapClusterService``, address lists) arrive with
-    the transport port and are refused here.
-
-    Close the session (or use it as a context manager) to release it;
-    closing individual streams only deregisters consumers.
+    Close the session (or use it as a context manager) to release wire
+    connections; closing individual streams only deregisters consumers.
     """
-    from .cluster import LcapCluster
+    from .cluster import LcapCluster, LcapClusterService
     if isinstance(target, LcapProxy):
         return Session(_LocalBackend(target))
     if isinstance(target, LcapCluster):
@@ -824,7 +980,14 @@ def connect(target: Union[LcapProxy, "LcapCluster"],
                     for i, shard in enumerate(target.shards)
                     if target.alive[i]]
         return ClusterSession(sessions, cluster=target)
-    raise SessionError(
-        f"cannot connect to {type(target).__name__}: this port connects to "
-        "an in-process LcapProxy or LcapCluster (wire targets arrive with "
-        "the transport port)")
+    if isinstance(target, LcapClusterService):
+        return ClusterSession(
+            [(i, Session(_WireBackend(_parse_address(a))))
+             for i, a in enumerate(target.addresses)],
+            topology=target.cluster_info)
+    if isinstance(target, list):           # a list of shard addresses
+        return ClusterSession(
+            [(i, Session(_WireBackend(_parse_address(a))))
+             for i, a in enumerate(target)])
+    address = getattr(target, "address", target)   # LcapService duck-type
+    return Session(_WireBackend(_parse_address(address)))

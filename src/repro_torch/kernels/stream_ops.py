@@ -107,6 +107,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.lcap_fid_slots.restype = ctypes.c_int
 
 
+def load() -> ctypes.CDLL:
+    """The kernel's library, built by nvcc and loaded on first call."""
+    return _build.load(SOURCE, _bind)
+
+
 def fid_slots_rows(rows: torch.Tensor, n_slots: int) -> torch.Tensor:
     """Slot of every header row's target FID, as int64 on the rows'
     device.  CUDA rows go through the kernel (or raise); CPU rows go
@@ -124,7 +129,7 @@ def fid_slots_rows(rows: torch.Tensor, n_slots: int) -> torch.Tensor:
         return out
     if rows.data_ptr() % 16:
         raise ValueError("rows must be 16-byte aligned")
-    lib = _build.load(SOURCE, _bind)
+    lib = load()
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     rc = lib.lcap_fid_slots(rows.data_ptr(), out.data_ptr(), n,
                             int(n_slots), rows.device.index or 0, stream)

@@ -26,7 +26,6 @@ import repro_torch.core.proxy as port_proxy                # noqa: E402
 import repro_torch.core.session as port_session            # noqa: E402
 import repro_torch.core.tenancy as port_tenancy            # noqa: E402
 from repro_torch.core import records as T                 # noqa: E402
-from repro_torch.core.errors import SessionError          # noqa: E402
 
 REF = SimpleNamespace(R=R, cluster=ref_cluster, proxy=ref_proxy,
                       session=ref_session, tenancy=ref_tenancy, kw={})
@@ -255,6 +254,10 @@ def test_port_refuses_what_this_slice_leaves_out():
         cluster.metrics()
     with pytest.raises(NotImplementedError, match="obs/"):
         port_session.connect(cluster).metrics()
+    # wire targets where nothing listens fail as the reference's do
     for target in (("127.0.0.1", 1), "127.0.0.1:1", [("127.0.0.1", 1)]):
-        with pytest.raises(SessionError):
+        with pytest.raises(OSError) as ref_exc:
+            ref_session.connect(target)
+        with pytest.raises(OSError) as port_exc:
             port_session.connect(target)
+        assert type(port_exc.value) is type(ref_exc.value)

@@ -38,7 +38,9 @@ def test_every_port_module_is_listed():
                  "repro_torch.configs.gemma2_9b",
                  "repro_torch.runtime.steps", "repro_torch.track.tracker",
                  "repro_torch.track.consumers",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.core.transport",
+                 "repro_torch.core.server", "repro_torch.core.reader",
+                 "repro_torch.core.federation"):
         assert want in names
 
 
