@@ -48,11 +48,25 @@ Phases, in order; any failed check exits nonzero and prints no result:
             coordinator here that routes on the card, and an audit group
             over the wire; records/s, routing seconds, wire bytes and
             messages (``transport.instrument``) and the seconds in
-            ``msgpack_subset``.
+            ``msgpack_subset``;
+7. activity the paper's consumers over the card-routed cluster, on 4 MDT
+            journals x 65,536 records from phase 4's generator: a
+            namespace mirror, a policy engine whose action journal is a
+            fifth producer (archive and purge rules on stream time, an
+            executor failing every fifth action; archive, on a last op
+            of CL_CLOSE that the mirror never applies, must emit
+            nothing), a windowed aggregator,
+            an audit trail and a SQLite metrics database, all held
+            against a plain reckoning from the generator's arrays; the
+            action stream reconciled; the merged registry's counters,
+            one Prometheus scrape over 127.0.0.1, a Ganglia push and the
+            ``top`` frame; one kernel launch per routing read; and a
+            small run whose consumers must end in the same state routing
+            on the card and on the CPU.
 
-Then a JSON line of serve numbers, one of wire numbers, one of kernels, the card's
-``nvidia-smi`` line, and the result line ``{"ok": true, "device":
-{...}}`` last.  Imports nothing of JAX, of the reference package or of
+Then a JSON line of serve numbers, one of wire numbers, one of activity
+numbers, one of kernels, the card's ``nvidia-smi`` line, and the result
+line ``{"ok": true, "device": {...}}`` last.  Imports nothing of JAX, of the reference package or of
 msgpack.
 """
 
@@ -94,6 +108,12 @@ SLOTS_SWEEP = (1, 64, 65535, 65536, 1000003)
 WIRE_RECORDS_PER_MDT = 65_536
 WIRE_DEADLINE_S = 300.0
 DAEMON_START_S = 120.0
+#: phase 7: records per MDT journal through the consumers (the mirror's
+#: reduction is a per-record Python loop, as the reference's), its time
+#: limit, and the aggregator's pane
+ACTIVITY_RECORDS_PER_MDT = 65_536
+ACTIVITY_DEADLINE_S = 400.0
+ACTIVITY_WINDOW_NS = 1_000_000
 EDGE_FIDS = [(0, 0, 0), (1, 0, 0), ((1 << 64) - 1, (1 << 32) - 1,
                                     (1 << 32) - 1), (1 << 63, 1, 2)]
 #: operation mix of the main path (percent)
@@ -921,6 +941,482 @@ def log_wire(label: str, r: dict, total: int, smi: str) -> None:
         f"the run's host seconds, summed over threads) [{smi}]")
 
 
+# ------------------------------------------------------ phase 7: activity
+class ConsumerClock:
+    """Host seconds and counts (records, actions or calls) of each
+    consumer's calls in one run."""
+
+    def __init__(self):
+        self.seconds = {}
+        self.counts = {}
+
+    def _add(self, name: str, since: float, n: int) -> None:
+        self.seconds[name] = self.seconds.get(name, 0.0) + \
+            time.perf_counter() - since
+        self.counts[name] = self.counts.get(name, 0) + n
+
+    def poll(self, name: str, fn, *args) -> int:
+        """Call ``fn``; count what it returns (a number, or a list's
+        length)."""
+        t = time.perf_counter()
+        got = fn(*args)
+        n = len(got) if isinstance(got, list) else got
+        self._add(name, t, n)
+        return n
+
+    def timed(self, name: str, fn):
+        """``fn`` adding its host seconds and calls under ``name``."""
+        def call(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            self._add(name, t, 1)
+            return out
+        return call
+
+
+def activity_rules(scale: float = 1.0):
+    """The phase's two rules on stream time.  Records step by 997 ns, so
+    one MDT of ``ACTIVITY_RECORDS_PER_MDT`` spans about 65 ms; a shorter
+    run passes ``scale`` = its records over that, so its rules fire at
+    the same points of its stream."""
+    from repro_torch.core import records as T
+    from repro_torch.policy import PolicyRule
+    return [PolicyRule("archive", action="archive",
+                       types={T.CL_CLOSE}, flags_all=T.CLF_JOBID,
+                       min_idle_s=0.01 * scale),
+            PolicyRule("purge", action="purge", types={T.CL_SETATTR},
+                       min_age_s=0.02 * scale)]
+
+
+class Copytool:
+    """The phase's executor, an HSM copytool stand-in: every fifth
+    cookie fails."""
+
+    def __init__(self):
+        self.done = self.failed = 0
+
+    def __call__(self, act) -> bool:
+        ok = act.cookie % 5 != 0
+        self.done += ok
+        self.failed += not ok
+        return ok
+
+
+def run_activity(journals: dict, device: str, db_path: str,
+                 n_slots: int = N_SLOTS, batch_size: int = BATCH,
+                 time_reap: bool = False) -> dict:
+    """The paper's consumers over the card-routed cluster (phase 7): a
+    ``NamespaceMirror``, a ``PolicyEngine`` whose action journal is a
+    fifth producer routed like the MDTs, an ``ActivityAggregator`` with
+    1 ms panes, an ``AuditTrail`` over ``AUDIT``'s types and a
+    ``MetricsDB`` on a new SQLite file ``db_path``, all subscribed
+    before the engine's journal joins and before the first pump; a port
+    ``MetricsRegistry`` attached to the cluster.  Pumps until every
+    journal, the actions included, is trimmed, then reconciles the
+    action stream.  ``time_reap`` also times the engine's zombie reaping
+    inside ``evaluate`` (the phase's timed run)."""
+    from repro_torch.core import records as T
+    from repro_torch.core.cluster import LcapCluster
+    from repro_torch.core.llog import from_packed
+    from repro_torch.obs import ActivityAggregator, MetricsRegistry
+    from repro_torch.policy import NamespaceMirror, PolicyEngine, reconcile
+    from repro_torch.track import AuditTrail, MetricsDB
+
+    # a compacted history tier behind every journal: the reconciler
+    # replays the action stream with replay=True, which every producer
+    # must be able to serve once trimmed
+    logs = {pid: from_packed(pid, buf, off, ln, first_index=1, history=True)
+            for pid, (buf, off, ln, _types) in journals.items()}
+    cluster = LcapCluster(logs, n_shards=N_SHARDS, n_slots=n_slots,
+                          batch_size=batch_size, device=device)
+    cluster.attach_registry(MetricsRegistry())
+    routing = timed_routing(cluster)
+    mirror = NamespaceMirror(cluster, replay=None)
+    agg = ActivityAggregator(cluster, window_ns=ACTIVITY_WINDOW_NS)
+    audit = AuditTrail(cluster, types=frozenset(getattr(T, n)
+                                                for n in AUDIT))
+    mdb = MetricsDB(cluster, db_path)
+    per_mdt = max(len(j[1]) for j in journals.values())
+    engine = PolicyEngine(mirror, activity_rules(
+        per_mdt / ACTIVITY_RECORDS_PER_MDT), target=cluster)
+    clock = ConsumerClock()
+    if time_reap:
+        # inside evaluate(): the engine's scan of its live actions and
+        # waiters for each dirtied target that is not (or no longer) in
+        # the mirror
+        engine._reap_target = clock.timed("engine_evaluate_reap",
+                                          engine._reap_target)
+    copytool = Copytool()
+    everything = dict(logs, actions=engine.log)
+    t0 = time.perf_counter()
+    deadline = t0 + ACTIVITY_DEADLINE_S
+    rounds = 0
+    while True:
+        rounds += 1
+        moved = cluster.pump()
+        moved += clock.poll("mirror", mirror.poll, 1 << 16)
+        moved += clock.poll("aggregator", agg.run_once, 1 << 16)
+        moved += clock.poll("audit", audit.poll, 1 << 16)
+        moved += clock.poll("metricsdb", mdb.poll, 1 << 16)
+        moved += clock.poll("engine_evaluate", engine.evaluate)
+        moved += clock.poll("engine_run", engine.run_pending, copytool)
+        if not moved and trimmed(everything):
+            break
+        check(time.perf_counter() < deadline, "the activity run did not "
+              f"drain within {ACTIVITY_DEADLINE_S} s")
+    if device != "cpu":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    t = time.perf_counter()
+    report = reconcile(engine, cluster)
+    reconcile_s = time.perf_counter() - t
+    check(all(cluster.alive) and cluster.stats["shards_failed"] == 0,
+          "a shard failed over during the activity run")
+    return {"cluster": cluster, "logs": logs, "mirror": mirror,
+            "engine": engine, "agg": agg, "audit": audit, "mdb": mdb,
+            "report": report, "seconds": seconds, "routing_s": routing[0],
+            "consumer_s": clock.seconds, "consumer_counts": clock.counts,
+            "reconcile_s": reconcile_s, "rounds": rounds,
+            "copytool": copytool}
+
+
+def activity_counters(snap: dict, render=None) -> tuple:
+    """A merged registry snapshot as the Prometheus text of its counters
+    (by ``render``, the port's ``render_prometheus`` unless given), the
+    help and label sets of its gauges and histograms, and its
+    histograms' bucket bounds: gauge values, pump latencies and their
+    sums can hold wall time."""
+    if render is None:
+        from repro_torch.obs import render_prometheus as render
+    counters = {n: e for n, e in snap.items() if e["type"] == "counter"}
+    shape = {n: (e["type"], e["help"],
+                 sorted(sorted(lb.items()) for lb, _v in e["samples"]))
+             for n, e in snap.items() if e["type"] != "counter"}
+    bounds = {n: sorted((sorted(lb.items()), [le for le, _c in v["buckets"]])
+                        for lb, v in e["samples"])
+              for n, e in snap.items() if e["type"] == "histogram"}
+    return render(counters), shape, bounds
+
+
+def consumer_state(run: dict) -> dict:
+    """Every consumer's state after an activity run, comparable across
+    runs: mirror snapshot, windows, audit report, live actions and the
+    reconcile report, SQLite rows and merged counters."""
+    agg, r = run["agg"], run["report"]
+    return {
+        "mirror": run["mirror"].snapshot(),
+        "windows": {w: agg.counters(w) for w in agg.window_ids()},
+        "agg_stats": dict(agg.stats),
+        "audit": run["audit"].report(),
+        "actions": run["engine"].live_state(),
+        "engine_stats": dict(run["engine"].stats),
+        "reconcile": (r.ok, r.missing, r.extra, r.mismatched, r.truth_live,
+                      r.stream_live),
+        "sqlite": run["mdb"].query(
+            "SELECT * FROM events ORDER BY producer, idx"),
+        "metrics": activity_counters(run["cluster"].metrics()),
+    }
+
+
+def journal_jobids(buf, offsets, types) -> np.ndarray:
+    """The 32-byte jobid of every record, read from the generator's own
+    buffer where it put them (after the header, and after the source
+    FID pair of a rename)."""
+    from repro_torch.core import records as T
+    raw = np.frombuffer(buf, dtype=np.uint8)
+    at = offsets + 64 + (types == T.CL_RENAME) * 32
+    mat = raw[at[:, None] + np.arange(32)]
+    return np.array([bytes(row).rstrip(b"\0").decode() for row in mat])
+
+
+def live_targets(journals: dict) -> set:
+    """The namespace a mirror must hold: each MDT's (type, oid) sequence
+    replayed in index order, CL_CREATE/CL_MKDIR adding the target and
+    CL_UNLINK/CL_RMDIR removing it (the generator makes no hard links,
+    so the last of these four on a target decides)."""
+    from repro_torch.core import records as T
+    out = set()
+    for buf, offsets, _ln, types in journals.values():
+        hdr = np.frombuffer(buf, dtype=np.uint8)[
+            offsets[:, None] + np.arange(64)].copy().view(T.HDR_DTYPE)[:, 0]
+        oid = hdr["toid"].astype(np.int64)
+        seq = int(hdr["tseq"][0])
+        keep = np.isin(types, [T.CL_CREATE, T.CL_MKDIR, T.CL_UNLINK,
+                               T.CL_RMDIR])
+        o, tp = oid[keep][::-1], types[keep][::-1]
+        _u, last = np.unique(o, return_index=True)
+        alive = np.isin(tp[last], [T.CL_CREATE, T.CL_MKDIR])
+        out.update((seq, int(x), 0) for x in o[last][alive])
+    return out
+
+
+def verify_activity(run: dict, journals: dict) -> dict:
+    """Phase 7's checks against a plain reckoning from the generator's
+    arrays, and against the engine's own ground truth for the action
+    stream; returns the numbers the phase prints."""
+    from repro_torch.core import records as T
+    from repro_torch.obs import (GangliaPusher, PrometheusExporter,
+                                 render_prometheus)
+    from repro_torch.policy import FAILED, MIRROR_TYPES, SUCCEED
+    import urllib.request
+    mirror, engine, agg = run["mirror"], run["engine"], run["agg"]
+    audit, mdb, cluster = run["audit"], run["mdb"], run["cluster"]
+    audit_types = np.array([getattr(T, n) for n in AUDIT])
+    types = {pid: j[3] for pid, j in journals.items()}
+    jobs = {pid: journal_jobids(j[0], j[1], j[3])
+            for pid, j in journals.items()}
+    total = sum(len(t) for t in types.values())
+    all_types = np.concatenate(list(types.values()))
+    all_jobs = np.concatenate(list(jobs.values()))
+
+    # the mirror
+    check(set(mirror.entries) == live_targets(journals),
+          "the mirror's live namespace is not the journals' replay")
+    check(mirror.stats["deduped"] == 0, "the mirror saw a redelivery")
+
+    # the action stream
+    n_actions = engine.log.last_index
+    done, failed = run["copytool"].done, run["copytool"].failed
+    statuses = [s for _k, _r, s in engine.live_state().values()]
+    report = run["report"]
+    check(report.ok and report.truth_live == report.stream_live,
+          f"reconcile: {report}")
+    check(done > 0 and failed > 0, f"actions completed {done}, failed "
+          f"{failed}: both must occur")
+    check(done + failed == engine.stats["completed"] and
+          statuses.count(SUCCEED) + statuses.count(FAILED)
+          + engine.stats["purged"] == done + failed,
+          "the engine's completions differ from the copytool's")
+    # run_pending starts (UPDATE) and completes every action it takes
+    emitted = {T.CL_ACTION_NEW: engine.stats["emitted"],
+               T.CL_ACTION_UPDATE: engine.stats["completed"],
+               T.CL_ACTION_COMPLETED: engine.stats["completed"],
+               T.CL_ACTION_PURGED: engine.stats["purged"]}
+    emitted = {t: n for t, n in emitted.items() if n}
+    check(sum(emitted.values()) == n_actions,
+          f"action journal holds {n_actions} records, the engine emitted "
+          f"{sum(emitted.values())}")
+
+    # the aggregator
+    check(agg.stats["late_dropped"] == 0 and
+          agg.stats["windows_evicted"] == 0,
+          f"aggregator dropped or evicted: {agg.stats}")
+    folded = {}
+    for w in agg.window_ids():
+        for (op, job, pid, _host), (c, _v) in agg.counters(w).items():
+            key = (pid, op, job)
+            folded[key] = folded.get(key, 0) + c
+    want = {}
+    for pid in journals:
+        pairs = np.char.add(types[pid].astype(str),
+                            np.char.add("|", jobs[pid]))
+        u, c = np.unique(pairs, return_counts=True)
+        for pair, n in zip(u.tolist(), c.tolist()):
+            op, job = pair.split("|", 1)
+            want[(pid, int(op), job)] = n
+    for t, n in emitted.items():
+        want[(engine.producer, t, "")] = n
+    check(folded == want, "the aggregator's (type, jobid) counts differ "
+          "from the journals'")
+
+    # the audit trail
+    sel = np.isin(all_types, audit_types)
+    u, c = np.unique(all_jobs[sel], return_counts=True)
+    want_jobs = dict(zip(u.tolist(), c.tolist()))
+    got_jobs = {j: t.records for j, t in audit.trails.items()}
+    check(got_jobs == want_jobs, "audit counts per jobid differ")
+    users = {}
+    for j, n in want_jobs.items():
+        uid = j.rpartition(".")[2]           # procname.uid
+        users[uid] = users.get(uid, 0) + n
+    check(audit.users() == users, "audit counts per user differ")
+    check(audit.unattributed == 0, "audit saw records without a jobid")
+
+    # the metrics database
+    u, c = np.unique(all_types, return_counts=True)
+    want_types = dict(zip(u.tolist(), c.tolist()))
+    got_types = dict(mdb.query("SELECT type, count(*) FROM events WHERE "
+                               "producer != ? GROUP BY type",
+                               (engine.producer,)))
+    check(got_types == want_types, "MetricsDB's type counts differ")
+    got_actions = dict(mdb.query("SELECT type, count(*) FROM events WHERE "
+                                 "producer = ? GROUP BY type",
+                                 (engine.producer,)))
+    check(got_actions == emitted, "MetricsDB's action counts differ")
+    # every NEW action is the purge rule's: the archive rule waits for a
+    # last op of CL_CLOSE, which the mirror neither subscribes to nor
+    # applies, so it never fires (a change there must show here)
+    kinds = dict(mdb.query("SELECT name, count(*) FROM events WHERE "
+                           "producer = ? AND type = ? GROUP BY name",
+                           (engine.producer, T.CL_ACTION_NEW)))
+    check(kinds == {"purge": engine.stats["emitted"]},
+          f"NEW actions by kind {kinds}: archive must emit none")
+
+    # the merged metrics: routed, offered to each group, delivered
+    snap = cluster.metrics()
+
+    def fam_sum(name, **match):
+        return sum(v for lb, v in snap.get(name, {}).get("samples", [])
+                   if all(lb.get(k) == x for k, x in match.items()))
+
+    routed = total + n_actions
+    check(fam_sum("lcap_cluster_routed_total") == routed and
+          fam_sum("lcap_proxy_ingested_total") == routed,
+          "routed or ingested counters != journal + action records")
+    n_mirror = int(np.isin(all_types, list(MIRROR_TYPES)).sum())
+    want = {"mirror": n_mirror, "obs": routed, "audit": int(sel.sum()),
+            "metrics": routed}
+    got = {"mirror": run["consumer_counts"]["mirror"],
+           "obs": run["consumer_counts"]["aggregator"],
+           "audit": run["consumer_counts"]["audit"],
+           "metrics": run["consumer_counts"]["metricsdb"]}
+    check(got == want, f"consumers received {got}, the journals hold "
+          f"{want}")
+    # the ack layer counts every record each group was offered (records
+    # a pushdown filtered out are acknowledged in place)
+    offered = {g: fam_sum("lcap_ack_delivered_records_total", group=g)
+               for g in want}
+    check(offered == dict.fromkeys(want, routed), f"ack-layer delivered "
+          f"counters {offered}, not {routed} for every group")
+    check(fam_sum("lcap_proxy_dispatched_total") == sum(want.values()) and
+          fam_sum("lcap_proxy_filtered_out_total")
+          == sum(routed - n for n in want.values()),
+          "dispatched / filtered counters differ from the deliveries")
+
+    # the export edges
+    exporter = PrometheusExporter(snapshot_fn=cluster.metrics,
+                                  host="127.0.0.1").start()
+    try:
+        with urllib.request.urlopen(exporter.url, timeout=30) as resp:
+            check(resp.status == 200, f"scrape status {resp.status}")
+            body = resp.read().decode()
+    finally:
+        exporter.stop()
+    scraped = counter_lines(body)
+    check(scraped and scraped == counter_lines(
+        render_prometheus(cluster.metrics())),
+        "the scrape's counters differ from render_prometheus")
+    pusher = GangliaPusher(snapshot_fn=cluster.metrics)
+    pushed = pusher.push()
+    sent = {m["name"].split(".")[1] for m in pusher.sent}
+    mapped = {short for name, (short, _u) in pusher.name_map.items()
+              if name in snap}
+    check(pushed == len(pusher.sent) > 0 and mapped and mapped <= sent,
+          f"Ganglia push sent {sorted(sent)}, not every mapped name "
+          f"{sorted(mapped)}")
+    return {"records": total, "actions_emitted": engine.stats["emitted"],
+            "action_records": n_actions, "actions_completed": done,
+            "actions_failed": failed,
+            "live_actions_by_rule": {r.name: sum(
+                1 for _k, rule, _s in engine.live_state().values()
+                if rule == r.name) for r in engine.rules},
+            "zombies_reaped": engine.stats["zombies_reaped"],
+            "mirror_entries": len(mirror.entries),
+            "windows": len(agg.window_ids()),
+            "audit_jobids": len(audit.trails),
+            "scraped_counter_lines": len(scraped),
+            "ganglia_metrics": pushed}
+
+
+def counter_lines(text: str) -> list:
+    """The sample lines of every counter family in exposition text."""
+    counters, out = set(), []
+    for line in text.splitlines():
+        if line.startswith("# TYPE ") and line.endswith(" counter"):
+            counters.add(line.split()[2])
+        elif line and not line.startswith("#") and \
+                line.split("{")[0].split(" ")[0] in counters:
+            out.append(line)
+    return sorted(out)
+
+
+def activity_phase(seed: int, smi: str) -> dict:
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.session import connect
+    from repro_torch.kernels import stream_ops
+    from repro_torch.obs import ActivityTop
+    journals = {f"mdt{m}": make_journal_arrays(m, ACTIVITY_RECORDS_PER_MDT,
+                                               seed)
+                for m in range(N_MDTS)}
+    with tempfile.TemporaryDirectory() as workdir:
+        stream_ops.launches = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run = run_activity(journals, "cuda",
+                               str(Path(workdir) / "activity.db"),
+                               time_reap=True)
+        launches, reads = stream_ops.launches, run["cluster"].routing_reads
+        facts = verify_activity(run, journals)
+        check(launches > 0, "the activity run launched no fid_slots kernel")
+        check(launches == reads, f"activity: fid_slots launches {launches} "
+              f"!= non-empty routing reads {reads}")
+        session = connect(run["cluster"])
+        frame = ActivityTop(run["agg"], session=session,
+                            cluster=run["cluster"], k=5).render()
+        session.close()
+        check(frame.strip() != "", "ActivityTop rendered an empty frame")
+        agg = run["agg"]
+        wins = agg.window_ids()
+        top = agg.top("jobid", k=5, sliding=wins[-1] - wins[0] + 1)
+        busy_ms = device_busy_ms(prof)
+        seconds = run["seconds"]
+        run["mdb"].close()
+        # small run: every consumer's state the same routing on the CPU
+        small = {f"mdt{m}": make_journal_arrays(m, 4096, seed + 1)
+                 for m in range(N_MDTS)}
+        states = []
+        for device in ("cuda", "cpu"):
+            r = run_activity(small, device,
+                             str(Path(workdir) / f"small-{device}.db"),
+                             batch_size=256)
+            verify_activity(r, small)
+            states.append(consumer_state(r))
+            r["mdb"].close()
+        check(states[0] == states[1], "the consumers' state differs "
+              "between routing on the card and on the CPU")
+    out = {"records": facts["records"], "seconds": seconds,
+           "records_per_s": facts["records"] / seconds,
+           "records_and_actions_per_s":
+               (facts["records"] + facts["action_records"]) / seconds,
+           "routing_s": run["routing_s"], "launches": launches,
+           "routing_reads": reads, "rounds": run["rounds"],
+           "consumer_s": run["consumer_s"],
+           "reap_calls": run["consumer_counts"].get(
+               "engine_evaluate_reap", 0),
+           "reconcile_s": run["reconcile_s"], "device_busy_ms": busy_ms,
+           "idle_share": 1 - busy_ms / 1e3 / seconds,
+           "top_jobids": [(r["label"], r["count"]) for r in top],
+           "small_run_records": N_MDTS * 4096, **facts}
+    log(f"activity: {facts['records']} journal records + "
+        f"{facts['action_records']} action records through mirror, policy "
+        f"engine, aggregator, audit and MetricsDB in {seconds:.3f} s, "
+        f"{out['records_per_s']:.1f} journal records/s [{smi}]")
+    log(f"activity: routing calls {run['routing_s']:.3f} s of the host's "
+        f"{seconds:.3f} s ({100 * run['routing_s'] / seconds:.3f} %), routing "
+        f"reads {reads}, fid_slots launches {launches}; device busy "
+        f"{busy_ms:.3f} ms by torch.profiler, idle "
+        f"{100 * out['idle_share']:.3f} % [{smi}]")
+    log("activity: host seconds in each consumer's polls: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(run["consumer_s"].items(),
+                                          key=lambda kv: -kv[1]))
+        + f" (engine_evaluate_reap is part of engine_evaluate: "
+        f"{run['consumer_counts'].get('engine_evaluate_reap', 0)} calls); "
+        f"reconcile {run['reconcile_s']:.3f} [{smi}]")
+    log(f"activity: mirror {facts['mirror_entries']} entries, actions "
+        f"emitted {facts['actions_emitted']} (live by rule "
+        f"{facts['live_actions_by_rule']}, zombies reaped "
+        f"{facts['zombies_reaped']}), completed {facts['actions_completed']}"
+        f", failed {facts['actions_failed']}, {facts['windows']} windows, "
+        f"top jobids {out['top_jobids']}")
+    log("activity: mirror = replay of the journals, aggregator and audit "
+        "counts = the journals', MetricsDB type counts = the journals', "
+        "reconcile ok, routed and delivered counters = deliveries, "
+        "Prometheus scrape = render_prometheus, Ganglia names sent, "
+        "ActivityTop rendered; small run (4 x 4096) identical on card and "
+        "CPU")
+    return out
+
+
 # ------------------------------------------------- phase 3: flash attention
 def flash_qkv(shape, dtype, seed: int, dev):
     B, Sq, Sk, H, KV, D = shape
@@ -1270,6 +1766,7 @@ def main() -> int:
     main = main_path_phase(args.seed)
     sv = serve_phase(args.seed)
     wire = wire_phase(args.seed, smi)
+    act = activity_phase(args.seed, smi)
     at = k["sizes"][BATCH]
     kernels = {"kernels": [{
         "name": "fid_slots",
@@ -1281,6 +1778,7 @@ def main() -> int:
         # phase 6's own runs, each counted from 0 like the main path's
         "wire_launches": {"cluster_service": wire["service"]["launches"],
                           "shard_daemons": wire["daemons"]["launches"]},
+        "activity_launches": act["launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": at["ms"], "plain_ms": at["plain_ms"],
         "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
@@ -1327,6 +1825,7 @@ def main() -> int:
                             "device_busy_ms": main["device_busy_ms"]}
     print(json.dumps({"serve": sv}), flush=True)
     print(json.dumps({"wire": wire}), flush=True)
+    print(json.dumps({"activity": act}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,15 @@
 A second package beside ``repro`` (the JAX reference, which it never
 imports).  It ports the reference slice by slice:
 
-- the sharded changelog pipeline, in process: records, journals, the
-  LCAP proxy, the FID-hash cluster and the consumer sessions (``core``),
-  with the cluster's routing hash as a hand-written CUDA kernel
-  (``kernels.stream_ops``);
+- the sharded changelog pipeline: records, journals, the LCAP proxy,
+  the FID-hash cluster, the consumer sessions, the wire and the
+  federation (``core``), with the cluster's routing hash as a
+  hand-written CUDA kernel (``kernels.stream_ops``);
+- the activity consumers: the metrics registry, windowed aggregation,
+  Prometheus/Ganglia export and the ``top`` view (``obs``), the
+  namespace mirror, policy engine and reconciler (``policy``), and the
+  metrics database, checkpoint, straggler, elastic and audit consumers
+  (``track``);
 - the dense model serving path: configs, layers, the decoder-only
   transformer's prefill and decode (``configs``, ``models``, ``runtime``),
   the activity tracker and cache invalidator (``track``) and the serving
@@ -16,6 +21,7 @@ imports).  It ports the reference slice by slice:
 See ROADMAP.md for what is still to come.
 """
 
-from . import configs, core, kernels, models, runtime, track
+from . import configs, core, kernels, models, obs, policy, runtime, track
 
-__all__ = ["configs", "core", "kernels", "models", "runtime", "track"]
+__all__ = ["configs", "core", "kernels", "models", "obs", "policy",
+           "runtime", "track"]

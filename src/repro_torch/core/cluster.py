@@ -1002,13 +1002,31 @@ class LcapCluster:
                     proxy.set_tenant_quota(tenant, **kw)
 
     def metrics(self) -> Dict[str, dict]:
-        """One merged cluster registry snapshot.  Merging needs the
-        observability plane (``obs/registry.merge_snapshots``), which
-        this port does not carry yet: see ROADMAP.md, Queue 1, item 6
-        (``obs/``, ``policy/`` and the rest of ``track/``)."""
-        raise NotImplementedError(
-            "LcapCluster.metrics needs the obs/ port (ROADMAP.md, "
-            "Queue 1, item 6)")
+        """One cluster snapshot: every live shard's registry snapshot
+        merged (counters summed, gauges relabeled per shard), plus the
+        coordinator's own registry when attached.
+
+        In-process shards share the coordinator registry, so their
+        samples are already shard-labeled and need no merge; remote
+        shards are polled over the wire."""
+        with self._lock:
+            own = getattr(self, "_obs", None)
+            per_shard = {}
+            for i, shard in enumerate(self.shards):
+                if not self.alive[i]:
+                    continue
+                proxy = getattr(shard, "proxy", None)
+                if proxy is not None and proxy._obs is own:
+                    continue     # shares the coordinator registry (or none)
+                snap = self._shard_call(i, shard.metrics)
+                if snap:
+                    per_shard[str(i)] = snap
+            from ..obs.registry import merge_snapshots
+            merged = merge_snapshots(per_shard) if per_shard else {}
+            if own is not None:
+                for name, ent in own.snapshot().items():
+                    merged[name] = ent
+            return merged
 
     def lag(self) -> Dict[str, Dict[str, Dict[str, int]]]:
         """Consumer lag per (group, producer), aggregated over live

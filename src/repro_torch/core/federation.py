@@ -27,9 +27,9 @@ cluster_a, "fs1": cluster_b}`` — into one consumer surface:
 - tenant scoping (``Subscription.tenant``) is pushed down to every
   member's proxies, so isolation holds per filesystem with no
   federation-level filtering;
-- ``stats()`` / ``lag()`` aggregate with per-origin breakdowns
-  (``metrics()``, the merged registry snapshot, waits for the port of
-  the observability plane).
+- ``metrics()`` merges every member's registry snapshot with gauges
+  relabeled by origin (``shard_label="origin"``), and ``stats()`` /
+  ``lag()`` aggregate with per-origin breakdowns.
 
 A member that dies mid-stream is dropped into ``FederatedStream.lost``
 and the survivors keep flowing; unlike an intra-cluster shard death
@@ -382,14 +382,20 @@ class Federation:
         return total
 
     def metrics(self) -> Dict:
-        """One federated registry snapshot, every member's metrics
-        merged with gauges relabeled by origin.  Merging needs the
-        observability plane (``obs/registry.merge_snapshots``), which
-        this port does not carry yet: see ROADMAP.md, Queue 1, item 6
-        (``obs/``, ``policy/`` and the rest of ``track/``)."""
-        raise NotImplementedError(
-            "Federation.metrics needs the obs/ port (ROADMAP.md, Queue 1, "
-            "item 6)")
+        """One federated registry snapshot: every member's metrics
+        merged — counters and histograms summed, gauges relabeled with
+        an ``origin`` label (the cluster tier already labeled its own
+        gauges per shard)."""
+        from ..obs.registry import merge_snapshots
+        per_origin = {}
+        for origin, sess in self.sessions.items():
+            try:
+                snap = sess.metrics()
+            except (ConnectionError, OSError):
+                continue
+            if snap:
+                per_origin[origin] = snap
+        return merge_snapshots(per_origin, shard_label="origin")
 
     def lag(self) -> Dict[str, Dict]:
         """Per-origin consumer lag views (origins are sovereign —

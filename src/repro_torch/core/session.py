@@ -833,13 +833,20 @@ class ClusterSession:
         return total
 
     def metrics(self) -> Dict:
-        """Merged registry snapshots across live shards.  Merging needs
-        the observability plane (``obs/registry.merge_snapshots``),
-        which this port does not carry yet: see ROADMAP.md, Queue 1,
-        item 6 (``obs/``, ``policy/`` and the rest of ``track/``)."""
-        raise NotImplementedError(
-            "ClusterSession.metrics needs the obs/ port (ROADMAP.md, "
-            "Queue 1, item 6)")
+        """Merged registry snapshots across live shards (counters and
+        histograms summed, gauges labeled by shard)."""
+        from ..obs.registry import merge_snapshots
+        per_shard = {}
+        for i, sess in self._sessions:
+            if not self._shard_alive(i):
+                continue
+            try:
+                snap = sess.metrics()
+            except (ConnectionError, OSError):
+                continue
+            if snap:
+                per_shard[str(i)] = snap
+        return merge_snapshots(per_shard)
 
     def lag(self) -> Dict:
         """Per-(group, producer) lag aggregated over live shards: lags

@@ -9,7 +9,9 @@ with the plain version within the reference's own tolerances
 (``tests/test_kernels.py``: 2e-5 for float32, 2e-2 for bfloat16) at
 every case of that file it takes, at the serving shape and at the extra
 bf16 cases, give 0 on fully masked rows, and refuse what it does not
-take.
+take.  The activity consumers of ``chip_smoke.py``'s phase 7 over a
+cluster routing on the card must end in the state they reach over one
+routing on the CPU.
 
 Imports only the port (the card's machine has no JAX and no msgpack),
 and skips where there is no CUDA card.  On a card:
@@ -216,3 +218,32 @@ def test_flash_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError):
         fa.flash_attention_bshd(off, off, off)
     assert fa.launches == before
+
+
+def test_activity_consumers_on_the_card_like_on_the_cpu(card, tmp_path):
+    """chip_smoke.py's phase 7 at 4 x 4096 records: the mirror, policy
+    engine, aggregator, audit trail and metrics database over a cluster
+    routing on the card end in the same state as over one routing on
+    the CPU, every routing read is one kernel launch, and each run holds
+    against the plain reckoning from the generator's arrays."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    journals = {f"mdt{m}": smoke.make_journal_arrays(m, 4096, 1)
+                for m in range(4)}
+    states = []
+    for device in ("cuda", "cpu"):
+        before = stream_ops.launches
+        run = smoke.run_activity(journals, device,
+                                 str(tmp_path / f"{device}.db"),
+                                 batch_size=256)
+        launched = stream_ops.launches - before
+        smoke.verify_activity(run, journals)
+        states.append(smoke.consumer_state(run))
+        run["mdb"].close()
+        reads = run["cluster"].routing_reads
+        assert launched == (reads if device == "cuda" else 0) and reads > 0
+    assert states[0] == states[1]

@@ -7,6 +7,8 @@ from the history tier.  Stats, lag, routing tables and journal
 watermarks must match exactly too.
 """
 
+import importlib.util
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -19,19 +21,29 @@ import repro.core.llog as ref_llog                         # noqa: E402
 import repro.core.proxy as ref_proxy                       # noqa: E402
 import repro.core.session as ref_session                   # noqa: E402
 import repro.core.tenancy as ref_tenancy                   # noqa: E402
+import repro.obs as ref_obs                                # noqa: E402
 from repro.core import records as R                       # noqa: E402
 import repro_torch.core.cluster as port_cluster            # noqa: E402
 import repro_torch.core.llog as port_llog                  # noqa: E402
 import repro_torch.core.proxy as port_proxy                # noqa: E402
 import repro_torch.core.session as port_session            # noqa: E402
 import repro_torch.core.tenancy as port_tenancy            # noqa: E402
+import repro_torch.obs as port_obs                         # noqa: E402
 from repro_torch.core import records as T                 # noqa: E402
 
+#: ``chip_smoke.py`` as a module: its ``activity_counters`` is the one
+#: normalisation of merged snapshots, shared with the card's phase 7
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+
 REF = SimpleNamespace(R=R, cluster=ref_cluster, proxy=ref_proxy,
-                      session=ref_session, tenancy=ref_tenancy, kw={})
+                      session=ref_session, tenancy=ref_tenancy, obs=ref_obs,
+                      kw={})
 PORT = SimpleNamespace(R=T, cluster=port_cluster, proxy=port_proxy,
                        session=port_session, tenancy=port_tenancy,
-                       kw={"device": "cpu"})
+                       obs=port_obs, kw={"device": "cpu"})
 
 MIX = ((R.CL_CREATE, 30), (R.CL_SETATTR, 25), (R.CL_CLOSE, 15),
        (R.CL_UNLINK, 15), (R.CL_MKDIR, 5), (R.CL_RMDIR, 5), (R.CL_RENAME, 5))
@@ -247,13 +259,37 @@ def test_port_routes_every_record_to_the_slot_owner(packed):
     assert cluster.routing_reads == 4 * -(-1000 // 256)
 
 
-def test_port_refuses_what_this_slice_leaves_out():
-    logs = {"mdt0": port_llog.Llog("mdt0")}
-    cluster = port_cluster.LcapCluster(logs, n_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="obs/"):
-        cluster.metrics()
-    with pytest.raises(NotImplementedError, match="obs/"):
-        port_session.connect(cluster).metrics()
+def merged_metrics(pkg, packed) -> tuple:
+    """One run with a registry attached: the cluster's merged snapshot
+    and the cluster session's merge over the shards, each as
+    ``chip_smoke.activity_counters`` gives it (counters as the
+    package's Prometheus text; help, labels and bucket bounds of the
+    rest, whose values can hold wall time)."""
+    logs = make_journals(pkg, {k: v[:600] for k, v in packed.items()},
+                         history=False)
+    cluster = pkg.cluster.LcapCluster(logs, n_shards=3, n_slots=64,
+                                      batch_size=128, **pkg.kw)
+    empty = (cluster.metrics(), pkg.session.connect(cluster).metrics())
+    cluster.attach_registry(pkg.obs.MetricsRegistry())
+    session = pkg.session.connect(cluster)
+    streams = [(g, session.subscribe(spec)) for g, spec in
+               subscriptions(pkg)]
+    drain(cluster, logs, streams, [], events={3: lambda c: c.kill_shard(1)})
+    out = [empty] + [smoke.activity_counters(snap, pkg.obs.render_prometheus)
+                     for snap in (cluster.metrics(), session.metrics())]
+    session.close()
+    return out
+
+
+def test_port_refuses_what_this_slice_leaves_out(packed):
+    """The merged metrics, once left out of the port, now equal the
+    reference's on the same run: empty before a registry is attached,
+    then counters and gauge labels through a shard kill."""
+    ref = merged_metrics(REF, packed)
+    assert merged_metrics(PORT, packed) == ref
+    assert ref[0] == ({}, {})
+    assert "lcap_cluster_routed_total" in ref[1][0]
+    assert ("shard", "2") in ref[1][1]["lcap_shard_alive"][2][2]
     # wire targets where nothing listens fail as the reference's do
     for target in (("127.0.0.1", 1), "127.0.0.1:1", [("127.0.0.1", 1)]):
         with pytest.raises(OSError) as ref_exc:

@@ -8,13 +8,15 @@ snapshots, stats and tenant accounts must equal the reference's.
 
 Members are in process (proxies and clusters routing on the CPU), except
 for the wire cases, which reach a member through its ``LcapService``.
-The port has no observability plane yet: where the reference merges
-registries, the port's ``Federation.metrics()`` raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 6, and the tenant
-accounts are compared instead.
+Where the reference merges registries, ``Federation.metrics()`` must
+give the reference's counters and gauge labels (token-bucket levels and
+pump latencies hold wall time); the audit report comes from each
+package's ``AuditTrail``.
 """
 
+import importlib.util
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -30,6 +32,8 @@ import repro.core.proxy as ref_proxy                       # noqa: E402
 import repro.core.server as ref_server                     # noqa: E402
 import repro.core.session as ref_session                   # noqa: E402
 import repro.core.tenancy as ref_tenancy                   # noqa: E402
+import repro.obs as ref_obs                                # noqa: E402
+import repro.track as ref_track                            # noqa: E402
 from repro.core import records as R                       # noqa: E402
 import repro_torch.core.cluster as port_cluster            # noqa: E402
 import repro_torch.core.errors as port_errors              # noqa: E402
@@ -39,17 +43,27 @@ import repro_torch.core.proxy as port_proxy                # noqa: E402
 import repro_torch.core.server as port_server              # noqa: E402
 import repro_torch.core.session as port_session            # noqa: E402
 import repro_torch.core.tenancy as port_tenancy            # noqa: E402
+import repro_torch.obs as port_obs                         # noqa: E402
+import repro_torch.track as port_track                     # noqa: E402
 from repro_torch.core import records as T                 # noqa: E402
+
+#: ``chip_smoke.py`` as a module: its ``activity_counters`` is the one
+#: normalisation of merged snapshots, shared with the card's phase 7
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
 
 REF = SimpleNamespace(R=R, cluster=ref_cluster, errors=ref_errors,
                       federation=ref_federation, llog=ref_llog,
                       proxy=ref_proxy, server=ref_server,
-                      session=ref_session, tenancy=ref_tenancy, kw={})
+                      session=ref_session, tenancy=ref_tenancy, obs=ref_obs,
+                      track=ref_track, kw={})
 PORT = SimpleNamespace(R=T, cluster=port_cluster, errors=port_errors,
                        federation=port_federation, llog=port_llog,
                        proxy=port_proxy, server=port_server,
                        session=port_session, tenancy=port_tenancy,
-                       kw={"device": "cpu"})
+                       obs=port_obs, track=port_track, kw={"device": "cpu"})
 DEADLINE_S = 10.0
 
 
@@ -623,8 +637,6 @@ def test_isolation_invariant_under_topology_churn(tmp_path):
 
 # ----------------------------------------------------------- observability
 def _tenant_accounts_and_merge(pkg):
-    """The reference test's traffic; the tenant accounts stand in for
-    the registry the port does not have yet."""
     acme, _evil = principals(pkg)
     S = pkg.session.Subscription
     log = pkg.llog.Llog("m")
@@ -638,12 +650,10 @@ def _tenant_accounts_and_merge(pkg):
     assert proxy.tenants["acme"].delivered_records == 5
     assert proxy.stats["tenant_filtered"] == 2
     fed, ca, cb, logs_a, logs_b = mk_fed(pkg)
-    if pkg is REF:
-        from repro.obs.registry import MetricsRegistry
-        for c in (ca, cb):
-            for i, shard in enumerate(c.shards):
-                shard.proxy.attach_registry(MetricsRegistry(),
-                                            {"shard": str(i)})
+    for c in (ca, cb):
+        for i, shard in enumerate(c.shards):
+            shard.proxy.attach_registry(pkg.obs.MetricsRegistry(),
+                                        {"shard": str(i)})
     fed.set_tenant_quota("acme", records_per_s=1e9)
     s = fed.subscribe(S(group="g", tenant=acme, auto_commit=False))
     feed(pkg, logs_a["fs0-p0"], b"acme.z", 4)
@@ -653,16 +663,13 @@ def _tenant_accounts_and_merge(pkg):
     delivered = sum(sh.proxy.tenants["acme"].delivered_records
                     for c in (ca, cb) for sh in c.shards)
     assert delivered == 4
-    if pkg is PORT:
-        with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-            fed.metrics()
-    else:
-        merged = fed.metrics()
-        gauges = merged["lcap_buffered_records"]["samples"]
-        assert {lbl.get("origin") for lbl, _v in gauges} >= {"fs0", "fs1"}
-        deliv = merged["lcap_tenant_delivered_records_total"]["samples"]
-        assert sum(v for _lbl, v in deliv) == 4
-    out = (trace, accounts(proxy), fed.stats(), s.cursor.snapshot())
+    merged = fed.metrics()
+    gauges = merged["lcap_buffered_records"]["samples"]
+    assert {lbl.get("origin") for lbl, _v in gauges} >= {"fs0", "fs1"}
+    deliv = merged["lcap_tenant_delivered_records_total"]["samples"]
+    assert sum(v for _lbl, v in deliv) == 4
+    out = (trace, accounts(proxy), fed.stats(), s.cursor.snapshot(),
+           smoke.activity_counters(merged, pkg.obs.render_prometheus))
     s.close(), fed.close(), ca.close(), cb.close()
     return out
 
@@ -674,29 +681,39 @@ def test_tenant_metrics_and_federation_merge():
 def _stats_and_audit(pkg):
     acme, _evil = principals(pkg)
     fed, ca, cb, logs_a, logs_b = mk_fed(pkg)
-    audit = fed.subscribe(pkg.session.Subscription(group="audit",
-                                                   tenant=acme))
+    audit = pkg.track.AuditTrail(fed, group="audit", tenant=acme)
+    # the tenant-scoped frames themselves, to a second group
+    frames = fed.subscribe(pkg.session.Subscription(group="frames",
+                                                    tenant=acme))
     feed(pkg, logs_a["fs0-p0"], b"acme.1000", 6)
     feed(pkg, logs_b["fs1-p0"], b"acme.1000", 2)
     feed(pkg, logs_b["fs1-p1"], b"evil.666", 5, base=300)
     by_origin, trace = {}, []
     for _ in range(30):
         fed.pump()
-        for origin, pid, batch in audit.fetch(4096):
+        audit.poll()
+        for origin, pid, batch in frames.fetch(4096):
             trace.append((origin, pid, batch.to_wire(R.WIRE_V2)))
             for i in range(len(batch)):
                 job = bytes(batch.record(i).jobid).decode()
                 key = (job, origin)
                 by_origin[key] = by_origin.get(key, 0) + 1
-        audit.commit()
+        frames.commit()
     assert by_origin == {("acme.1000", "fs0"): 6, ("acme.1000", "fs1"): 2}
+    rep = audit.report()
+    assert rep["tenant"] == "acme"
+    assert set(rep["jobs"]) == {"acme.1000"}
+    assert rep["jobs"]["acme.1000"]["by_origin"] == {"fs0": 6, "fs1": 2}
+    assert rep["users"] == {"1000": 8}
+    assert rep["unattributed"] == 0
     st = fed.stats()
     assert set(st["per_origin"]) == {"fs0", "fs1"}
-    assert st["tenant_filtered"] == 5
+    assert st["tenant_filtered"] == 2 * 5     # evil's 5, in each group
     lag = fed.lag()
     assert set(lag) == {"fs0", "fs1"}
-    audit.close(), fed.close(), ca.close(), cb.close()
-    return trace, st, lag
+    top = [(t.jobid, t.user, t.records) for t in audit.top()]
+    frames.close(), audit.close(), fed.close(), ca.close(), cb.close()
+    return trace, rep, top, st, lag
 
 
 def test_federation_stats_and_audit_report():

@@ -40,7 +40,13 @@ def test_every_port_module_is_listed():
                  "repro_torch.track.consumers",
                  "repro_torch.launch.serve", "repro_torch.core.transport",
                  "repro_torch.core.server", "repro_torch.core.reader",
-                 "repro_torch.core.federation"):
+                 "repro_torch.core.federation", "repro_torch.obs",
+                 "repro_torch.obs.registry", "repro_torch.obs.exporter",
+                 "repro_torch.obs.aggregator", "repro_torch.obs.dashboard",
+                 "repro_torch.policy", "repro_torch.policy.mirror",
+                 "repro_torch.policy.engine",
+                 "repro_torch.policy.reconciler",
+                 "repro_torch.track.audit", "repro_torch.track.bootstrap"):
         assert want in names
 
 
