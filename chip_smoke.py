@@ -4,7 +4,8 @@
 
 Phases, in order; any failed check exits nonzero and prints no result:
 
-1. device   the card's name and power limit (no CUDA card: exit 2);
+1. device   the card's name and power limit (no CUDA card: exit 2; no
+            ``src/repro_torch`` beside the script: exit 3);
 2. build    the CUDA kernels of ``src/repro_torch`` compiled from the
             checkout with nvcc, one process per source, all at once
             (into ``src/repro_torch/kernels/build``);
@@ -53,19 +54,32 @@ Phases, in order; any failed check exits nonzero and prints no result:
             journals x 65,536 records from phase 4's generator: a
             namespace mirror, a policy engine whose action journal is a
             fifth producer (archive and purge rules on stream time, an
-            executor failing every fifth action; archive, on a last op
-            of CL_CLOSE that the mirror never applies, must emit
-            nothing), a windowed aggregator,
+            executor failing every fifth action; both rules must fire,
+            and each archive target must have been last set by a job and
+            idle at its action's emission, by the engine's view and by a
+            replay of the journals), a windowed aggregator,
             an audit trail and a SQLite metrics database, all held
             against a plain reckoning from the generator's arrays; the
             action stream reconciled; the merged registry's counters,
             one Prometheus scrape over 127.0.0.1, a Ganglia push and the
             ``top`` frame; one kernel launch per routing read; and a
             small run whose consumers must end in the same state routing
-            on the card and on the CPU.
+            on the card and on the CPU;
+8. train    starcoder2-3b at full width and depth (30 layers, 4.31 B
+            parameters) trained on the card by the port's ``Trainer``
+            with fp32 master weights and AdamW (69 GB of state), 2 hosts'
+            activity feeding MetricsDB, the checkpoint committer and the
+            straggler detector: one warm-up step, 5 timed, one under the
+            profiler; finite losses and grad norms, a first loss below
+            2 ln(vocab) + 1, the host schedule's lr, MetricsDB rows =
+            steps x hosts per type, journals trimmed; then at 2 layers a
+            restart probe (checkpoint at step 3, a new trainer resumes
+            there with an equal step 4 loss) and one training step on
+            the card against the CPU (loss and grad norm within 2e-2);
+            neither kernel is launched.
 
 Then a JSON line of serve numbers, one of wire numbers, one of activity
-numbers, one of kernels, the card's ``nvidia-smi`` line, and the result
+numbers, one of training numbers, one of kernels, the card's ``nvidia-smi`` line, and the result
 line ``{"ok": true, "device": {...}}`` last.  Imports nothing of JAX, of the reference package or of
 msgpack.
 """
@@ -166,6 +180,21 @@ FLASH_MAIN = ((SERVE_B, SERVE_P, SERVE_P, 32, 8, 128), "bfloat16", True, 0,
 LOGIT_ATOL = 0.12
 #: decode steps profiled on their own after the checks
 DECODE_PROFILE_STEPS = 5
+#: phase 8: starcoder2-3b trained at full width and depth with fp32
+#: master weights and AdamW; the restart probe and the card-vs-CPU step
+#: at full width and TRAIN_PROBE_LAYERS layers
+TRAIN_ARCH = "starcoder2-3b"
+TRAIN_HOSTS, TRAIN_BATCH, TRAIN_SEQ = 2, 8, 512
+TRAIN_HP = dict(n_micro=2, remat=True, remat_policy="none",
+                attn_impl="naive")
+TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS = 1, 5
+TRAIN_PROBE_LAYERS = 2
+#: the card-vs-CPU step's batch: the CPU takes its full-width step in
+#: seconds at 2 x 128 tokens (minutes at the phase's 8 x 512)
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 128
+TRAIN_TOL = 2e-2
+#: fp32 parameters, gradients, m and v
+TRAIN_STATE_BYTES_PER_PARAM = 16
 DEVICE = torch.device("cuda")
 
 
@@ -978,11 +1007,14 @@ def activity_rules(scale: float = 1.0):
     """The phase's two rules on stream time.  Records step by 997 ns, so
     one MDT of ``ACTIVITY_RECORDS_PER_MDT`` spans about 65 ms; a shorter
     run passes ``scale`` = its records over that, so its rules fire at
-    the same points of its stream."""
+    the same points of its stream.  ``archive`` takes entries last set
+    by a job (CL_SETATTR, which is also the only op that records the
+    writer's jobid in the mirror: CL_CREATE starts an entry with none)
+    and idle since; ``purge`` old entries last set."""
     from repro_torch.core import records as T
     from repro_torch.policy import PolicyRule
     return [PolicyRule("archive", action="archive",
-                       types={T.CL_CLOSE}, flags_all=T.CLF_JOBID,
+                       types={T.CL_SETATTR}, flags_all=T.CLF_JOBID,
                        min_idle_s=0.01 * scale),
             PolicyRule("purge", action="purge", types={T.CL_SETATTR},
                        min_age_s=0.02 * scale)]
@@ -1046,6 +1078,19 @@ def run_activity(journals: dict, device: str, db_path: str,
         # the mirror
         engine._reap_target = clock.timed("engine_evaluate_reap",
                                           engine._reap_target)
+    # the mirror's view of each archive target as the engine emits its
+    # NEW action: (target, stream clock, last op, jobid held, idle ns)
+    archived = []
+    emit = engine._emit
+
+    def watch(rtype, act, status):
+        if rtype == T.CL_ACTION_NEW and act.rule == "archive":
+            e = mirror.entries[act.key]
+            archived.append((act.key, mirror.clock, e.last_type,
+                             bool(e.attr_jobid), mirror.clock - e.mtime))
+        return emit(rtype, act, status)
+
+    engine._emit = watch
     copytool = Copytool()
     everything = dict(logs, actions=engine.log)
     t0 = time.perf_counter()
@@ -1077,7 +1122,7 @@ def run_activity(journals: dict, device: str, db_path: str,
             "report": report, "seconds": seconds, "routing_s": routing[0],
             "consumer_s": clock.seconds, "consumer_counts": clock.counts,
             "reconcile_s": reconcile_s, "rounds": rounds,
-            "copytool": copytool}
+            "copytool": copytool, "archived": archived}
 
 
 def activity_counters(snap: dict, render=None) -> tuple:
@@ -1148,6 +1193,49 @@ def live_targets(journals: dict) -> set:
         alive = np.isin(tp[last], [T.CL_CREATE, T.CL_MKDIR])
         out.update((seq, int(x), 0) for x in o[last][alive])
     return out
+
+
+def archive_reckoning(journals: dict, idle_ns: int) -> tuple:
+    """The archive rule's plain reckoning: each MDT's mirror-applied
+    records replayed in index order through a target's lifecycle
+    (CL_CREATE/CL_MKDIR start it with no jobid, CL_UNLINK/CL_RMDIR end
+    it, CL_RENAME and CL_SETATTR touch a live one, CL_SETATTR recording
+    the writer's jobid).  Returns ``(qualifying, eligible)``: target ->
+    stream times at which it became an archive candidate (last op
+    CL_SETATTR carrying a jobid), and the targets that are candidates at
+    the end and idle ``idle_ns`` by the last time the mirror sees."""
+    from repro_torch.core import records as T
+    from repro_torch.policy import MIRROR_TYPES
+    qualifying, final, clock = {}, {}, 0
+    for buf, offsets, _ln, types in journals.values():
+        keep = np.isin(types, list(MIRROR_TYPES))
+        hdr = np.frombuffer(buf, dtype=np.uint8)[
+            offsets[keep][:, None] + np.arange(64)].copy().view(
+                T.HDR_DTYPE)[:, 0]
+        clock = max(clock, int(hdr["time"].max()))
+        seq = int(hdr["tseq"][0])
+        for oid, t, when, flags in zip(hdr["toid"].tolist(),
+                                       types[keep].tolist(),
+                                       hdr["time"].tolist(),
+                                       hdr["flags"].tolist()):
+            key = (seq, oid, 0)
+            alive = final.get(key)
+            if t in (T.CL_CREATE, T.CL_MKDIR):
+                final[key] = (False, when)
+            elif alive is None:
+                continue
+            elif t in (T.CL_UNLINK, T.CL_RMDIR):
+                del final[key]
+            elif t == T.CL_SETATTR:
+                ok = bool(flags & T.CLF_JOBID)
+                final[key] = (ok, when)
+                if ok:
+                    qualifying.setdefault(key, []).append(when)
+            elif t == T.CL_RENAME:
+                final[key] = (False, when)
+    eligible = {k for k, (ok, when) in final.items()
+                if ok and when + idle_ns <= clock}
+    return qualifying, eligible
 
 
 def verify_activity(run: dict, journals: dict) -> dict:
@@ -1243,14 +1331,31 @@ def verify_activity(run: dict, journals: dict) -> dict:
                                  "producer = ? GROUP BY type",
                                  (engine.producer,)))
     check(got_actions == emitted, "MetricsDB's action counts differ")
-    # every NEW action is the purge rule's: the archive rule waits for a
-    # last op of CL_CLOSE, which the mirror neither subscribes to nor
-    # applies, so it never fires (a change there must show here)
+    # both rules fire.  Each archive target, as its NEW action was
+    # emitted, was last set by a job (CL_SETATTR with a jobid) and idle;
+    # against the plain reckoning: it had become a candidate by then,
+    # and every target that is a candidate and idle at the end has one
+    archived = run["archived"]
     kinds = dict(mdb.query("SELECT name, count(*) FROM events WHERE "
                            "producer = ? AND type = ? GROUP BY name",
                            (engine.producer, T.CL_ACTION_NEW)))
-    check(kinds == {"purge": engine.stats["emitted"]},
-          f"NEW actions by kind {kinds}: archive must emit none")
+    check(kinds.get("archive", 0) == len(archived) > 0 and
+          kinds.get("purge", 0) > 0 and
+          sum(kinds.values()) == engine.stats["emitted"],
+          f"NEW actions by kind {kinds}: both rules must fire")
+    rule = next(r for r in engine.rules if r.name == "archive")
+    idle_ns = int(rule.min_idle_s * 1e9)
+    check(all(last == T.CL_SETATTR and jobid and idle >= idle_ns
+              for _k, _c, last, jobid, idle in archived),
+          "an archive action's target was not last set by a job and idle")
+    qualifying, eligible = archive_reckoning(journals, idle_ns)
+    late = [k for k, clock, *_ in archived
+            if not any(w + idle_ns <= clock for w in qualifying.get(k, ()))]
+    check(not late, f"{len(late)} archive targets were no candidates at "
+          f"their emission by the journals' replay, e.g. {late[:3]}")
+    missed = eligible - {k for k, *_ in archived}
+    check(not missed, f"{len(missed)} idle candidates at the end got no "
+          f"archive action, e.g. {sorted(missed)[:3]}")
 
     # the merged metrics: routed, offered to each group, delivered
     snap = cluster.metrics()
@@ -1307,6 +1412,8 @@ def verify_activity(run: dict, journals: dict) -> dict:
     return {"records": total, "actions_emitted": engine.stats["emitted"],
             "action_records": n_actions, "actions_completed": done,
             "actions_failed": failed,
+            "actions_by_rule": kinds,
+            "archive_candidates_at_end": len(eligible),
             "live_actions_by_rule": {r.name: sum(
                 1 for _k, rule, _s in engine.live_state().values()
                 if rule == r.name) for r in engine.rules},
@@ -1726,6 +1833,318 @@ def serve_phase(seed: int) -> dict:
             "remaining_pages": out["remaining_pages"]}
 
 
+# ------------------------------------------------------------ phase 8: train
+def train_hp(**kw):
+    from repro_torch.runtime.steps import TrainHParams
+    return TrainHParams(**dict(TRAIN_HP, **kw))
+
+
+def drain_trainer(trainer, rounds: int = 50) -> None:
+    """Pump the trainer's consumers until every host journal is trimmed
+    behind them (checkpoint writes finished first)."""
+    trainer.ckpt.wait()
+    for _ in range(rounds):
+        trainer.pump_consumers()
+        if all(t.llog.first_index == t.llog.last_index + 1
+               for t in trainer.trackers):
+            return
+    raise SmokeError("the trainer's journals did not trim behind its "
+                     "consumers")
+
+
+def record_metrics(trainer) -> list:
+    """Wrap the trainer's step to keep each step's metrics (read after
+    the run, so no extra synchronise)."""
+    got, step = [], trainer.train_step
+
+    def wrapped(params, opt, batch):
+        out = step(params, opt, batch)
+        got.append((opt.step, out[2]))
+        return out
+
+    trainer.train_step = wrapped
+    return got
+
+
+def check_train_metrics(hist, got, hp, cfg) -> list:
+    """Every loss and grad norm finite, the first loss a sensible init's
+    (tests/test_models.py: < 2 ln(vocab) + 1), ``lr`` the host
+    schedule's; returns the grad norms."""
+    from repro_torch.optim.adamw import cosine_lr
+    losses = [h["loss"] for h in hist]
+    norms = [float(m["grad_norm"]) for _s, m in got]
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"train: losses {losses} or grad norms {norms} not finite")
+    check(losses[0] < 2 * np.log(cfg.vocab_size) + 1,
+          f"train: first loss {losses[0]} >= 2 ln(vocab) + 1")
+    want = [cosine_lr(s, peak=hp.peak_lr, warmup=hp.warmup,
+                      total=hp.total_steps) for s, _m in got]
+    check([m["lr"] for _s, m in got] == want,
+          f"train: lr {[m['lr'] for _s, m in got]} != the schedule's {want}")
+    return norms
+
+
+def train_card_vs_cpu(cfg, batch: int, seq: int, seed: int) -> dict:
+    """One ``build_train_step`` step of ``cfg`` on the card and on the CPU
+    from the same fp32 weights (drawn on the CPU) and the same batch:
+    loss and grad norm within ``TRAIN_TOL`` relative, ``lr`` equal."""
+    from repro_torch.data import ShardedTokenPipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import build_train_step
+    hp = train_hp()
+    data = ShardedTokenPipeline(cfg.vocab_size, seq, batch, 1, 0,
+                                seed=seed).batch_at(0)
+    host = T.init_params(cfg, seed=seed, device="cpu", dtype=torch.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = adamw.tree_map(lambda t: t.to(dev, copy=True), host)
+        t0 = time.perf_counter()
+        _p, _o, m = build_train_step(cfg, hp)(params, adamw.init(params),
+                                              data)
+        out[dev] = {"loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]), "lr": m["lr"],
+                    "seconds": time.perf_counter() - t0}
+        del params, _p, _o
+    card, cpu = out["cuda"], out["cpu"]
+    for k in ("loss", "grad_norm"):
+        check(abs(card[k] - cpu[k]) <= TRAIN_TOL * abs(cpu[k]),
+              f"train: card {k} {card[k]} vs CPU {cpu[k]}: beyond "
+              f"{TRAIN_TOL} relative")
+    check(card["lr"] == cpu["lr"], f"train: lr {card['lr']} on the card, "
+          f"{cpu['lr']} on the CPU")
+    return out
+
+
+def optimizer_ms(trainer, runs: int = 3) -> float:
+    """CUDA-event time of one AdamW update (clipping included) over the
+    trainer's whole state, on gradients of zeros (the last step freed the
+    real ones); it changes the state, so it runs after the checks."""
+    from repro_torch.optim import adamw
+    grads = adamw.tree_map(torch.zeros_like, trainer.params)
+    opt = trainer.opt_state
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _p, opt, _gn = adamw.update(grads, opt, trainer.params, lr=1e-6)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    trainer.opt_state = opt
+    return statistics.median(times)
+
+
+def device_ms_by_class(prof) -> dict:
+    """Device time of a CUDA-only profile by kind of kernel: matrix
+    products (cuBLAS's ``nvjet``/``gemm``/``cutlass`` kernels),
+    elementwise, reductions (softmax, log-sum-exp, norms), the rest."""
+    out = {"matmul": 0.0, "elementwise": 0.0, "reduce": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        name = e.key.lower()
+        if any(k in name for k in ("nvjet", "gemm", "cutlass", "xmma")):
+            out["matmul"] += us / 1e3
+        elif "elementwise" in name:
+            out["elementwise"] += us / 1e3
+        elif "reduce" in name or "softmax" in name:
+            out["reduce"] += us / 1e3
+        else:
+            out["other"] += us / 1e3
+    return out
+
+
+def train_phase(seed: int, smi: str) -> dict:
+    import tempfile
+    import warnings
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs as C
+    from repro_torch.checkpoint import ckpt as ckpt_mod
+    from repro_torch.core import records as T
+    from repro_torch.kernels import flash_attention as fa, stream_ops
+    from repro_torch.models import transformer as M
+    from repro_torch.runtime.train_loop import Trainer
+    cfg = C.get_config(TRAIN_ARCH)
+    n_params = M.count_params(cfg)
+    torch.cuda.empty_cache()
+    total_b = torch.cuda.get_device_properties(0).total_memory
+    state_b = TRAIN_STATE_BYTES_PER_PARAM * n_params
+    log(f"train: {TRAIN_ARCH} at full width and depth ({cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}): {n_params} "
+        f"parameters; fp32 parameters, gradients, m and v "
+        f"{state_b / 1e9:.3f} GB of the card's {total_b / 1e9:.3f} GB, "
+        f"{(total_b - state_b) / 1e9:.3f} GB left for activations and "
+        f"workspace; {torch.cuda.memory_allocated() / 1e9:.3f} GB still "
+        f"allocated by earlier phases")
+    check(state_b < total_b, "train: the optimizer state does not fit")
+    hp = train_hp()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    slots0, flash0 = stream_ops.launches, fa.launches
+    out = {"arch": TRAIN_ARCH, "params": n_params, "layers": cfg.n_layers,
+           "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+           "hp": dict(hp._asdict()), "state_gb": state_b / 1e9}
+
+    # (a) full width and depth, the consumers attached
+    with tempfile.TemporaryDirectory() as wd:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, workdir=wd, hp=hp, global_batch=TRAIN_BATCH,
+                          seq_len=TRAIN_SEQ, n_hosts=TRAIN_HOSTS,
+                          ckpt_every=10 ** 9, seed=seed, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        got = record_metrics(trainer)
+        trainer.run(TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            hist = trainer.run(1)
+        prof_ms = hist[-1]["time"] * 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        norms = check_train_metrics(hist, got, hp, cfg)
+        opt_ms = optimizer_ms(trainer)
+        drain_trainer(trainer)
+        n_steps = len(hist)
+        rows = dict(trainer.metrics[0].query(
+            "SELECT type, COUNT(*) FROM events GROUP BY type"))
+        want = {t: n_steps * TRAIN_HOSTS for t in (
+            T.CL_STEP_COMMIT, T.CL_HEARTBEAT, T.CL_DATA_CONSUME)}
+        check(rows == want, f"train: MetricsDB rows by type {rows}, the "
+              f"steps x hosts imply {want}")
+        trainer.close()
+        del trainer
+    timed = [h["time"] for h in hist[TRAIN_WARMUP_STEPS:-1]]
+    step_s = statistics.median(timed)
+    busy_ms = device_busy_ms(prof)
+    by_class = device_ms_by_class(prof)
+    events = sorted(prof.key_averages(), key=lambda e: -getattr(
+        e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))
+    top = [(e.key, round(getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0))
+                         / 1e3, 3), e.count) for e in events[:8]]
+    out.update({
+        "init_s": init_s, "losses": [h["loss"] for h in hist],
+        "grad_norms": norms, "lrs": [m["lr"] for _s, m in got],
+        "step_ms": [t * 1e3 for t in timed], "step_ms_median": step_s * 1e3,
+        "tokens_per_s": tokens / step_s,
+        "model_flop_share_bf16": 6 * n_params * tokens / step_s
+        / BF16_FLOP_PER_S,
+        "profiled_step_ms": prof_ms, "device_busy_ms": busy_ms,
+        "idle_share": 1 - busy_ms / prof_ms, "peak_memory_gb": peak_gb,
+        "optimizer_ms": opt_ms, "device_ms_by_class": by_class,
+        "top_device_ops_ms": top, "metricsdb_rows": rows})
+    log(f"train: {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, n_micro "
+        f"{hp.n_micro}, remat {hp.remat_policy!r}, {hp.attn_impl} attention;"
+        f" step {out['step_ms_median']:.3f} ms (median of "
+        f"{TRAIN_TIMED_STEPS} after {TRAIN_WARMUP_STEPS} warm-up: "
+        f"{', '.join(f'{t:.3f}' for t in out['step_ms'])}), "
+        f"{out['tokens_per_s']:.1f} tokens/s, model FLOPs "
+        f"(6 N tokens / step) {100 * out['model_flop_share_bf16']:.3f} % of "
+        f"the bf16 dense peak (989 TFLOP/s) [{smi}]")
+    log(f"train: profiled step {prof_ms:.3f} ms wall, device busy "
+        f"{busy_ms:.3f} ms (idle {100 * out['idle_share']:.3f} %), by kind "
+        f"of kernel (ms): {', '.join(f'{k} {v:.3f}' for k, v in by_class.items())}"
+        f"; one AdamW update alone {opt_ms:.3f} ms by events; peak memory "
+        f"{peak_gb:.3f} GB; init {init_s:.3f} s [{smi}]")
+    log(f"train: top device operations (ms, calls): "
+        f"{[(name[:60], ms, n) for name, ms, n in top]}")
+    log(f"train: losses {out['losses']}, grad norms {norms}; MetricsDB "
+        f"rows {rows}; journals trimmed behind the consumers")
+
+    # (b) restart probe: full width, TRAIN_PROBE_LAYERS layers
+    probe = cfg.replace(n_layers=TRAIN_PROBE_LAYERS)
+    timing = {"snapshot_s": 0.0, "write_s": 0.0}
+    save = ckpt_mod.save_checkpoint
+
+    def timed_save(*a, **kw):
+        t = time.perf_counter()
+        paths = save(*a, **kw)
+        timing["write_s"] += time.perf_counter() - t
+        return paths
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    ckpt_mod.save_checkpoint = timed_save
+    try:
+        with tempfile.TemporaryDirectory() as wd, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            kw = dict(workdir=wd, hp=hp, global_batch=TRAIN_BATCH,
+                      seq_len=TRAIN_SEQ, n_hosts=TRAIN_HOSTS, ckpt_every=3,
+                      seed=seed, device="cuda")
+            first = Trainer(probe, **kw)
+            tree = first.checkpoint_tree
+
+            def timed_tree():
+                t = time.perf_counter()
+                out_tree = tree()
+                timing["snapshot_s"] += time.perf_counter() - t
+                return out_tree
+
+            first.checkpoint_tree = timed_tree
+            h1 = first.run(4)
+            drain_trainer(first)
+            check(first.committer.latest_committed() == 3,
+                  f"train: committed {first.committer.latest_committed()}, "
+                  "not 3")
+            ck_dir = Path(wd) / "ckpt"
+            ckpt_bytes = sum(f.stat().st_size for f in ck_dir.iterdir()
+                             if f.name.startswith("step-00000003"))
+            first.close()
+            del first
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            second = Trainer(probe, **kw)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            check(second.step == 3 and all(p.step == 3
+                                           for p in second.pipes),
+                  f"train: resumed at step {second.step}, pipes at "
+                  f"{[p.step for p in second.pipes]}, not 3")
+            check(second.committer.latest_committed() == 3,
+                  "train: the restarted committer does not see step 3")
+            h2 = second.run(1)
+            drain_trainer(second)
+            second.close()
+            del second
+            nondet = sorted({str(w.message).split(".")[0] for w in caught
+                             if "deterministic" in str(w.message)})
+    finally:
+        ckpt_mod.save_checkpoint = save
+        torch.use_deterministic_algorithms(False)
+    check(h2[0]["step"] == 4 and h2[0]["loss"] == h1[3]["loss"],
+          f"train: the resumed step 4 loss {h2[0]['loss']} != the first "
+          f"run's {h1[3]['loss']}")
+    out["restart"] = {"layers": TRAIN_PROBE_LAYERS,
+                      "losses": [h["loss"] for h in h1],
+                      "resumed_step4_loss": h2[0]["loss"],
+                      "checkpoint_bytes": ckpt_bytes,
+                      "snapshot_s": timing["snapshot_s"],
+                      "write_s": timing["write_s"], "restore_s": restore_s,
+                      "nondeterministic_ops": nondet}
+    log(f"train: restart probe ({TRAIN_PROBE_LAYERS} layers at full width):"
+        f" checkpoint at step 3 {ckpt_bytes} bytes, host snapshot "
+        f"{timing['snapshot_s']:.3f} s, write {timing['write_s']:.3f} s "
+        f"(off the training thread), restart and restore {restore_s:.3f} s;"
+        f" resumed at step 3, step 4 loss {h2[0]['loss']!r} = the first "
+        f"run's; ops without a deterministic version: {nondet or 'none'}")
+
+    # (c) the same step on the card and on the CPU
+    cmp_ = train_card_vs_cpu(probe, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, seed)
+    out["card_vs_cpu"] = cmp_
+    log(f"train: one step of the probe config at {TRAIN_CPU_BATCH} x "
+        f"{TRAIN_CPU_SEQ} tokens, card vs CPU: loss {cmp_['cuda']['loss']} /"
+        f" {cmp_['cpu']['loss']}, grad norm {cmp_['cuda']['grad_norm']} / "
+        f"{cmp_['cpu']['grad_norm']}, lr {cmp_['cuda']['lr']} (within "
+        f"{TRAIN_TOL} relative)")
+    out["launches"] = {"fid_slots": stream_ops.launches - slots0,
+                       "flash_attention": fa.launches - flash0}
+    check(out["launches"] == {"fid_slots": 0, "flash_attention": 0},
+          f"train: kernel launches {out['launches']}: training runs neither "
+          "TPU kernel's port")
+    return out
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1741,6 +2160,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}"
+              "; run it from a checkout of the repository", file=sys.stderr)
+        return 3
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -1767,6 +2190,7 @@ def main() -> int:
     sv = serve_phase(args.seed)
     wire = wire_phase(args.seed, smi)
     act = activity_phase(args.seed, smi)
+    tr = train_phase(args.seed, smi)
     at = k["sizes"][BATCH]
     kernels = {"kernels": [{
         "name": "fid_slots",
@@ -1779,6 +2203,7 @@ def main() -> int:
         "wire_launches": {"cluster_service": wire["service"]["launches"],
                           "shard_daemons": wire["daemons"]["launches"]},
         "activity_launches": act["launches"],
+        "train_launches": tr["launches"]["fid_slots"],
         "max_abs_err": k["max_abs_err"],
         "ms": at["ms"], "plain_ms": at["plain_ms"],
         "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
@@ -1803,6 +2228,7 @@ def main() -> int:
         "library_ms": fl[kernel]["library_ms"],
         "shape": "q (4, 2048, 32, 128), k/v (4, 2048, 8, 128) bf16, causal",
         "kernel": kernel, "cases": fl[kernel]["cases"],
+        "train_launches": tr["launches"]["flash_attention"],
         "turns_ms": fl[kernel]["turns_ms"],
         "back_to_back_ms": fl[kernel]["back_to_back_ms"],
         "library_back_to_back_ms": fl[kernel]["library_back_to_back_ms"],
@@ -1826,6 +2252,7 @@ def main() -> int:
     print(json.dumps({"serve": sv}), flush=True)
     print(json.dumps({"wire": wire}), flush=True)
     print(json.dumps({"activity": act}), flush=True)
+    print(json.dumps({"train": tr}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

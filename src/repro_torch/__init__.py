@@ -16,12 +16,19 @@ imports).  It ports the reference slice by slice:
   transformer's prefill and decode (``configs``, ``models``, ``runtime``),
   the activity tracker and cache invalidator (``track``) and the serving
   launcher (``launch.serve``), with attention as a hand-written CUDA
-  kernel (``kernels.flash_attention``).
+  kernel (``kernels.flash_attention``);
+- training on one device with its activity: the loss and per-layer
+  remat (``models``), AdamW (``optim``), the token pipeline (``data``),
+  checkpoints interchangeable with the reference's (``checkpoint``), the
+  training step, straggler mitigation, the one-device elastic mesh and
+  the trainer (``runtime``), and the training launcher
+  (``launch.train``).
 
 See ROADMAP.md for what is still to come.
 """
 
-from . import configs, core, kernels, models, obs, policy, runtime, track
+from . import (checkpoint, configs, core, data, kernels, models, obs, optim,
+               policy, runtime, track)
 
-__all__ = ["configs", "core", "kernels", "models", "obs", "policy",
-           "runtime", "track"]
+__all__ = ["checkpoint", "configs", "core", "data", "kernels", "models",
+           "obs", "optim", "policy", "runtime", "track"]

@@ -371,6 +371,8 @@ class LcapProxy:
         self.consumers: Dict[str, Consumer] = {}
         self._buffer: Deque[Tuple[str, R.RecordBatch]] = deque()
         self._buffered = 0                    # records currently in _buffer
+        #: producer -> lowest journal index in _buffer; None when stale
+        self._buffer_lo: Optional[Dict[str, int]] = None
         self.stats = {"ingested": 0, "dispatched": 0, "dropped_by_modules": 0,
                       "redelivered": 0, "acked_upstream": 0,
                       "ephemeral_drops": 0, "batches_ingested": 0,
@@ -812,6 +814,7 @@ class LcapProxy:
         if len(kept):
             self._buffer.append((pid, kept))
             self._buffered += len(kept)
+            self._buffer_lo = None
         if hi > self.ingested.get(pid, -1):
             self.ingested[pid] = hi
         self.stats["batches_ingested"] += 1
@@ -1170,6 +1173,7 @@ class LcapProxy:
         while self._buffer:
             pid, batch = self._buffer.popleft()
             self._buffered -= len(batch)
+            self._buffer_lo = None
             if self._fast_eligible(groups, ephemerals, states_sat,
                                    len(batch), n):
                 d, f = self._dispatch_batch(pid, batch, groups, ephemerals)
@@ -1307,6 +1311,7 @@ class LcapProxy:
                     rest = batch[stop:]
                     self._buffer.appendleft((pid, rest))
                     self._buffered += len(rest)
+                    self._buffer_lo = None
                 break
         self.stats["dispatched"] += dispatched
         self.stats["filtered_out"] += filtered_out
@@ -1584,8 +1589,28 @@ class LcapProxy:
         if tr.in_flight or grp.pending:
             return tr.watermark
         # nothing outstanding: the group is current through everything
-        # ingested (records dropped by modules must not block the trim)
-        return max(tr.watermark, self.ingested.get(pid, 0))
+        # ingested (records dropped by modules must not block the trim),
+        # short of the first record still buffered for dispatch — a
+        # push-fed shard that reported those acknowledged would lose
+        # them if it died before dispatching them
+        pos = self.ingested.get(pid, 0)
+        lo = self._buffered_lo(pid)
+        if lo is not None:
+            pos = min(pos, lo - 1)
+        return max(tr.watermark, pos)
+
+    def _buffered_lo(self, pid: str) -> Optional[int]:
+        """Lowest journal index of ``pid`` still in the ingest buffer,
+        or None.  Computed in one pass over the buffer and kept until
+        the buffer next changes (acks between dispatches reuse it)."""
+        if self._buffer_lo is None:
+            lo: Dict[str, int] = {}
+            for p, batch in self._buffer:
+                b = int(batch.indices_np().min())
+                if b < lo.get(p, b + 1):
+                    lo[p] = b
+            self._buffer_lo = lo
+        return self._buffer_lo.get(pid)
 
     def _ack_upstream(self, pid: str) -> None:
         if not self.groups:

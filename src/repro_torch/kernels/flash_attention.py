@@ -19,7 +19,8 @@ alone; the wrapper never falls back from one kernel to the other.
   bfloat16, ``H % KV == 0``, ``D <= 256``; it returns ``(B, Sq, H, D)`` in
   q's type.  On CUDA tensors it launches the chosen kernel and raises on
   anything that kernel does not take; on CPU tensors it runs
-  ``flash_attention_reference``.
+  ``flash_attention_reference``.  It is forward only: with grad mode on
+  and an input that requires grad it raises on either device.
 - ``flash_attention_reference`` is the plain PyTorch version: a masked
   softmax in fp32 with the kernels' semantics (a fully masked row gives
   0, where ``repro/kernels/ref.py`` gives NaN).
@@ -92,6 +93,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim must be in [1, {MAX_HEAD_DIM}], got {D}")
     if window < 0 or cap < 0:
         raise ValueError(f"window and cap must be >= 0, got {window}, {cap}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # the CUDA kernels write their output through a raw pointer, with
+        # no autograd node: q, k and v would silently get no gradient
+        raise NotImplementedError(
+            "flash attention is forward only (neither this kernel nor the "
+            "reference's Pallas kernel has a backward pass): call it under "
+            "torch.no_grad(), or train with attention 'naive'")
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,

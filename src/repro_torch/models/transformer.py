@@ -13,7 +13,16 @@ weights, embeddings and biases are held in the compute type (bf16) and
 the norm weights in fp32: the reference holds fp32 weights but casts
 each one to bf16 at every use and reads norm weights as fp32, so the
 rounding is the same and the card holds half the bytes.
-``params_from_jax`` carries the reference's parameters across.
+``params_from_jax`` carries the reference's parameters across and
+``params_to_jax`` takes them back (checkpoints are written in the
+reference's layout).  Training keeps fp32 master weights
+(``init_params(dtype=torch.float32)``), as the reference does; the
+layers cast them at use.
+
+``forward(remat=True)`` recomputes each layer in the backward pass with
+``torch.utils.checkpoint`` (non-reentrant), one checkpoint per layer
+where the reference wraps its scan body in ``jax.checkpoint``; the
+reference's policies map by name (``REMAT_POLICIES``).
 
 Other families (MoE, SSD, hybrid, encoder-decoder, VLM) raise
 ``NotImplementedError`` naming the ROADMAP.md item that brings them.
@@ -26,6 +35,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import layers as L
 from .config import ModelConfig
@@ -133,6 +144,42 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
     return _walk(param_layout(cfg), init)
 
 
+def params_to_jax(params: Dict, cfg: ModelConfig) -> Dict:
+    """The inverse of ``params_from_jax``: the reference's parameter tree
+    as fresh host numpy arrays, layer ``l`` stacked into body
+    ``l // scan_period``, slot ``l % scan_period`` (``body/slot{i}``).
+    Each leaf keeps the dtype held; bf16, which numpy lacks, widens to
+    fp32 (exactly).  Also takes any tree shaped like the parameters (the
+    optimizer's moments)."""
+    _require_dense(cfg)
+    period = cfg.scan_period
+    layers = params["layers"]
+    if len(layers) % period:
+        raise ValueError(f"{len(layers)} layers do not fill bodies of "
+                         f"{period} slots")
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.to("cpu", copy=True).numpy()
+
+    def stack(*leaves):
+        return np.stack([host(t) for t in leaves])
+
+    def stack_tree(trees):
+        first = trees[0]
+        if isinstance(first, dict):
+            return {k: stack_tree([t[k] for t in trees]) for k in first}
+        return stack(*trees)
+
+    out = {k: host(params[k]) for k in ("embed", "final_norm", "unembed")
+           if k in params}
+    out["body"] = {f"slot{s}": stack_tree(layers[s::period])
+                   for s in range(period)}
+    return out
+
+
 def params_from_jax(tree: Dict, *, device=None,
                     dtype: torch.dtype = COMPUTE_DTYPE) -> Dict:
     """The port's parameters from the reference's parameter pytree as
@@ -201,18 +248,65 @@ def _layer_forward(lp, x, cfg: ModelConfig, l: int, positions, impl):
     return x + L.mlp_layer(lp["mlp"], h2, cfg)
 
 
-def forward(params, cfg: ModelConfig, tokens, *, impl="naive"):
+#: the reference's remat policies (``runtime/steps.py::REMAT_POLICIES``)
+#: by name; what each layer keeps for the backward pass:
+#: ``dots`` the outputs of its unbatched matrix products (JAX's
+#: ``dots_with_no_batch_dims_saveable``: a ``(B, S, D) @ (D, F)``
+#: projection folds to ``aten.mm``, attention's batched products are
+#: ``aten.bmm`` and are recomputed), ``none`` only its input
+#: (``nothing_saveable``), ``everything`` all of it (no recompute)
+REMAT_POLICIES = ("dots", "none", "everything")
+_SAVED_BY_DOTS = frozenset({torch.ops.aten.mm.default,
+                            torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def forward(params, cfg: ModelConfig, tokens, *, impl="naive",
+            remat: bool = False, remat_policy: Optional[str] = None):
     """Full-sequence forward: tokens (B,S) -> (logits (B,S,V) f32, aux),
-    aux being the reference's auxiliary loss (0 for dense layers)."""
+    aux being the reference's auxiliary loss (0 for dense layers).
+
+    ``remat``: recompute each layer in the backward pass, keeping what
+    ``remat_policy`` (a name of ``REMAT_POLICIES``; None means ``dots``,
+    the reference's default) saves."""
     _require_dense(cfg)
+    policy = remat_policy or "dots"
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}: "
+                         f"{', '.join(REMAT_POLICIES)}")
+    recompute = remat and policy != "everything" and torch.is_grad_enabled()
+    ckpt_kw = {"context_fn": _dots_context} if policy == "dots" else {}
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
     positions = _positions(B, S, x.device)
     for l, lp in enumerate(params["layers"]):
-        x = _layer_forward(lp, x, cfg, l, positions, impl)
+        if recompute:
+            x = checkpoint(_layer_forward, lp, x, cfg, l, positions, impl,
+                           use_reentrant=False, **ckpt_kw)
+        else:
+            x = _layer_forward(lp, x, cfg, l, positions, impl)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (_unembed(params, cfg, x),
             torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+# -------------------------------------------------------------------- loss
+def loss_fn(params, cfg: ModelConfig, tokens, labels, **fw_kw):
+    """Mean next-token cross-entropy (log-sum-exp minus the label's
+    logit) plus the auxiliary loss: ``(total, (loss, aux))``."""
+    logits, aux = forward(params, cfg, tokens, **fw_kw)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = torch.mean(lse - ll)
+    return loss + aux, (loss, aux)
 
 
 # ----------------------------------------------------------- decode caches

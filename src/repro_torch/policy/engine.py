@@ -1,6 +1,12 @@
 """Declarative policy rules + the action lifecycle stream.
 The port of ``repro/policy/engine.py``.
 
+One difference, in cost only: the live-action and age-in tables are
+indexed by target (``_TargetIndexed``), so reaping a vanished target
+touches only its own entries instead of scanning every live action and
+waiter.  The index keeps insertion order, so purges are emitted in the
+reference's order and the engine ends in the same state.
+
 The Robinhood half: ``PolicyRule``s are evaluated *incrementally*
 against the ``NamespaceMirror`` (only targets the stream dirtied since
 the last evaluation), and a match emits an **action record** — a
@@ -46,6 +52,43 @@ SUCCEED = "SUCCEED"
 FAILED = "FAILED"
 
 _TERMINAL = frozenset({SUCCEED, FAILED})
+
+
+class _TargetIndexed(dict):
+    """A dict keyed by ``(target, rule name)`` that also indexes its
+    keys by target, each target's rules in insertion order (the order in
+    which the dict itself holds them), so one target's entries are found
+    without a scan of the whole table.  Only ``[key] =``, ``del`` and
+    ``pop`` keep the index; the engine mutates the tables by no other
+    method."""
+
+    def __init__(self):
+        super().__init__()
+        self._by_target: Dict[Key, Dict[str, None]] = {}
+
+    def __setitem__(self, key_rule: Tuple[Key, str], value) -> None:
+        if key_rule not in self:
+            self._by_target.setdefault(key_rule[0], {})[key_rule[1]] = None
+        super().__setitem__(key_rule, value)
+
+    def __delitem__(self, key_rule: Tuple[Key, str]) -> None:
+        super().__delitem__(key_rule)
+        self._unindex(key_rule)
+
+    def pop(self, key_rule: Tuple[Key, str], *default):
+        if key_rule in self:
+            self._unindex(key_rule)
+        return super().pop(key_rule, *default)
+
+    def _unindex(self, key_rule: Tuple[Key, str]) -> None:
+        rules = self._by_target[key_rule[0]]
+        del rules[key_rule[1]]
+        if not rules:
+            del self._by_target[key_rule[0]]
+
+    def keys_of(self, key: Key) -> List[Tuple[Key, str]]:
+        """``(key, rule)`` entries of target ``key``, in insertion order."""
+        return [(key, rule) for rule in self._by_target.get(key, ())]
 
 
 @dataclass(frozen=True)
@@ -172,10 +215,10 @@ class PolicyEngine:
                                                  resume=True)
         self._cookie_seq = itertools.count(1)
         self.actions: Dict[int, Action] = {}          # live, by cookie
-        self._live_by_target: Dict[Tuple[Key, str], int] = {}
+        self._live_by_target: Dict[Tuple[Key, str], int] = _TargetIndexed()
         #: (target, rule name) -> stream time at which its time gates
         #: open — quiescent entries are re-examined when they age in
-        self._waiting: Dict[Tuple[Key, str], int] = {}
+        self._waiting: Dict[Tuple[Key, str], int] = _TargetIndexed()
         self.stats = {"evaluated": 0, "emitted": 0, "completed": 0,
                       "purged": 0, "zombies_reaped": 0, "recovered": 0}
         self._recover()
@@ -299,11 +342,10 @@ class PolicyEngine:
     def _reap_target(self, key: Key) -> None:
         """Target gone: purge its live actions (the related repo's
         janitor calls these zombies) and forget its age-in waiters."""
-        for (k, rule), cookie in list(self._live_by_target.items()):
-            if k == key:
-                self.purge(cookie)
-                self.stats["zombies_reaped"] += 1
-        for k_rule in [kr for kr in self._waiting if kr[0] == key]:
+        for k_rule in self._live_by_target.keys_of(key):
+            self.purge(self._live_by_target[k_rule])
+            self.stats["zombies_reaped"] += 1
+        for k_rule in self._waiting.keys_of(key):
             del self._waiting[k_rule]
 
     def start(self, cookie: int) -> None:

@@ -9,9 +9,10 @@ with the plain version within the reference's own tolerances
 (``tests/test_kernels.py``: 2e-5 for float32, 2e-2 for bfloat16) at
 every case of that file it takes, at the serving shape and at the extra
 bf16 cases, give 0 on fully masked rows, and refuse what it does not
-take.  The activity consumers of ``chip_smoke.py``'s phase 7 over a
-cluster routing on the card must end in the state they reach over one
-routing on the CPU.
+take, inputs that need a gradient included.  The activity consumers of
+``chip_smoke.py``'s phase 7 over a cluster routing on the card must end
+in the state they reach over one routing on the CPU, and a training step
+on the card must agree with the same step on the CPU (phase 8).
 
 Imports only the port (the card's machine has no JAX and no msgpack),
 and skips where there is no CUDA card.  On a card:
@@ -247,3 +248,38 @@ def test_activity_consumers_on_the_card_like_on_the_cpu(card, tmp_path):
         reads = run["cluster"].routing_reads
         assert launched == (reads if device == "cuda" else 0) and reads > 0
     assert states[0] == states[1]
+
+
+def test_train_step_on_the_card_like_on_the_cpu(card):
+    """chip_smoke.py's phase 8 (c) at the smoke config: one training step
+    on the card and on the CPU from the same weights and batch, loss and
+    grad norm within 2e-2 relative, lr equal."""
+    import importlib.util
+    from pathlib import Path
+    from repro_torch import configs as C
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    before = (stream_ops.launches, fa.launches)
+    out = smoke.train_card_vs_cpu(C.get_smoke("starcoder2-3b"), 4, 32, 0)
+    assert out["cuda"]["lr"] == out["cpu"]["lr"]
+    assert (stream_ops.launches, fa.launches) == before
+
+
+def test_flash_kernel_refuses_inputs_that_need_grad(card):
+    """The kernel writes through a raw pointer with no autograd node: a
+    call that would need q, k or v's gradient raises instead of giving
+    none."""
+    q, k, v = qkv((1, 64, 64, 4, 2, 64), "bfloat16", seed=3, device=card)
+    before = fa.launches
+    for t in (q, k, v):
+        t.requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="forward only"):
+            fa.flash_attention_bshd(q, k, v)
+        t.requires_grad_(False)
+    assert fa.launches == before
+    with torch.no_grad():
+        q.requires_grad_(True)
+        assert fa.flash_attention_bshd(q, k, v).shape == q.shape
+    assert fa.launches == before + 1

@@ -297,3 +297,46 @@ def test_port_refuses_what_this_slice_leaves_out(packed):
         with pytest.raises(OSError) as port_exc:
             port_session.connect(target)
         assert type(port_exc.value) is type(ref_exc.value)
+
+
+def test_buffered_records_hold_a_shard_watermark():
+    """A push-fed shard must not report records it has buffered but not
+    dispatched as acknowledged.  One routing round offers shard 1 a
+    batch (buffered) and then a batch with none of its records (a bare
+    watermark advance); the watermark read before any dispatch must stay
+    below the buffered records, so when shard 1 dies its backlog is
+    re-offered and nothing is lost."""
+    n_slots, per = 64, 32
+    owner = [s % 2 for s in range(n_slots)]       # LcapCluster's initial map
+    to_shard0 = [oid for oid in range(1, 10_000)
+                 if owner[port_cluster.fid_slot((0x200000400, oid, 0),
+                                                n_slots)] == 0][:per]
+    recs = [R.ChangelogRecord(type=R.CL_CREATE, time=10**18 + i,
+                              tfid=R.Fid(0x200000400, oid, 0),
+                              pfid=R.Fid(0x200000400, 1, 0), name=b"f%d" % i)
+            for i, oid in enumerate(list(range(1, per + 1)) + to_shard0)]
+    feeder = ref_llog.Llog("m0")
+    feeder.register_reader("feeder")
+    feeder.log_batch(recs)
+    logs = make_journals(PORT, {"m0": list(feeder.read(1, 2 * per))},
+                         history=False)
+    cluster = port_cluster.LcapCluster(logs, n_shards=2, n_slots=n_slots,
+                                       batch_size=per, device="cpu")
+    assert cluster.slot_owner == owner
+    stream = port_session.connect(cluster).subscribe(
+        port_session.Subscription(group="g", auto_commit=False))
+    cluster.pump(pump_shards=False)               # route and offer only
+    shard1 = cluster.shards[1].proxy
+    buffered = [int(i) for pid, b in shard1._buffer for i in b.indices()]
+    assert buffered and max(buffered) <= per
+    assert cluster.shards[1].watermarks().get("m0", 0) < min(buffered)
+    cluster.kill_shard(1)
+    got = []
+    for _ in range(50):
+        cluster.pump()
+        for pid, batch in stream.fetch(1000):
+            got.extend((pid, int(i)) for i in batch.indices())
+        stream.commit()
+        if logs["m0"].first_index == logs["m0"].last_index + 1:
+            break
+    assert sorted(set(got)) == [("m0", i) for i in range(1, 2 * per + 1)]

@@ -46,7 +46,14 @@ def test_every_port_module_is_listed():
                  "repro_torch.policy", "repro_torch.policy.mirror",
                  "repro_torch.policy.engine",
                  "repro_torch.policy.reconciler",
-                 "repro_torch.track.audit", "repro_torch.track.bootstrap"):
+                 "repro_torch.track.audit", "repro_torch.track.bootstrap",
+                 "repro_torch.optim", "repro_torch.optim.adamw",
+                 "repro_torch.data", "repro_torch.data.pipeline",
+                 "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+                 "repro_torch.runtime.straggler",
+                 "repro_torch.runtime.elastic",
+                 "repro_torch.runtime.train_loop",
+                 "repro_torch.launch.train"):
         assert want in names
 
 

@@ -418,6 +418,46 @@ def test_zombie_actions_reaped_when_target_vanishes(tmp_path):
     both(_zombies, tmp_path)
 
 
+def _mass_reap(pkg, tmp_path):
+    """Many vanished targets against many live actions and waiters, the
+    engine's reap indexed by target: the same purges, in the same order,
+    and the same tables afterwards."""
+    P, pol = pkg.R, pkg.policy
+    proxy, log = mk_proxy(pkg, tmp_path)
+    mirror = pol.NamespaceMirror(proxy)
+    engine = pol.PolicyEngine(mirror, [
+        pol.PolicyRule("now", min_age_s=0),
+        pol.PolicyRule("set", action="purge",
+                       types=frozenset({P.CL_SETATTR})),
+        pol.PolicyRule("later", min_age_s=3600)], target=proxy)
+    for oid in range(1, 301):
+        log.log(rec(pkg, P.CL_CREATE, oid, 0, name=b"f%d" % oid))
+        if oid % 3 == 0:
+            log.log(rec(pkg, P.CL_SETATTR, oid, 0.5))
+    drive(proxy, mirror, engine)
+    live = len(engine.actions)
+    assert live == 400 and len(engine._waiting) == 300
+    # unlink every other target, in an order unlike their creation's,
+    # and 50 targets the mirror never held
+    gone = list(range(300, 0, -2)) + list(range(1001, 1051))
+    for i, oid in enumerate(gone):
+        log.log(rec(pkg, P.CL_UNLINK, oid, 1 + i * 1e-3))
+    drive(proxy, mirror, engine)
+    assert engine.stats["zombies_reaped"] == 200
+    assert len(engine._waiting) == 150
+    proxy.pump()
+    r = pol.reconcile(engine, proxy)
+    assert r.ok
+    return (engine.stats, engine.live_state(),
+            list(engine._live_by_target.items()),
+            list(engine._waiting.items()), report(r),
+            action_chain(pkg, engine))
+
+
+def test_mass_zombie_reap_matches_reference(tmp_path):
+    both(_mass_reap, tmp_path)
+
+
 # -------------------------------------------------------------- reconciler
 def _injected_discrepancies(pkg, tmp_path):
     P, pol = pkg.R, pkg.policy
