@@ -17,9 +17,10 @@ Phases, in order; any failed check exits nonzero and prints no result:
             CUDA cores, every case) at every case of the reference's
             tests/test_kernels.py it takes, at the serving path's shape
             and at extra bf16 cases (a 2049-token prefill, gemma2's
-            head_dim with window and softcap, rows with nothing visible),
-            within 2e-5 (float32) / 2e-2 (bfloat16); both timed at the
-            serving shape, in turns with
+            head_dim with window and softcap, rows with nothing visible,
+            phase 9's head_dim 64 with GQA 32:4), within 2e-5 (float32) /
+            2e-2 (bfloat16); both timed at phase 5's and phase 9's
+            shapes, in turns with
             ``scaled_dot_product_attention`` on the same tensors as a
             yardstick (the port never calls it);
 4. main     the sharded changelog pipeline end to end: 4 MDT journals x
@@ -34,7 +35,7 @@ Phases, in order; any failed check exits nonzero and prints no result:
             serving launcher: 4 prompts of 2048 tokens prefilled through
             the wgmma attention kernel (one launch per layer, and none of
             the CUDA-core kernel, by the wrapper's counters and by the
-            profiler's kernel names), 16 tokens
+            profiler's kernel names; no ``fid_slots`` launch), 16 tokens
             generated, the LCAP invalidation loop over 2 replicas; then
             flash-vs-naive and prefill/decode consistency of the logits;
 6. wire     the main path over the wire, on 4 MDT journals x 65,536
@@ -76,17 +77,38 @@ Phases, in order; any failed check exits nonzero and prints no result:
             restart probe (checkpoint at step 3, a new trainer resumes
             there with an equal step 4 loss) and one training step on
             the card against the CPU (loss and grad norm within 2e-2);
-            neither kernel is launched.
+            neither kernel is launched;
+9. moe      qwen3-moe-30b-a3b at full width and depth (48 layers, 128
+            experts top-8, 30.08 B parameters in bf16, seeded random
+            weights) through phase 5's serving path: 48 wgmma launches
+            per prefill and none of the CUDA-core kernel (counters and
+            profiler names), phase 5's invalidation counts, the share of
+            (token, k) slots the prefill drops at the default capacity
+            (decode drops none); flash-vs-naive and decode-vs-prefill
+            logits (the latter at a capacity where nothing drops) within
+            0.12 with one run replaying the other's routes, and free-running
+            unless router choices differ between the two runs (counted by
+            layer and printed with the free-running difference); one MoE
+            layer in float32 on the card against the CPU (routing equal,
+            output within 1e-5); no ``fid_slots`` launch;
+10. ssm     mamba2-780m at full width and depth (48 layers, 780 M
+            parameters) on the same path: no attention launch (0 and 0)
+            and no ``fid_slots`` launch;
+            decode at P against a P + 1 token prefill within 0.12; one SSD
+            layer in float32 on the card against the CPU (output, cache
+            and two decode steps within 1e-4).
 
 Then a JSON line of serve numbers, one of wire numbers, one of activity
-numbers, one of training numbers, one of kernels, the card's ``nvidia-smi`` line, and the result
-line ``{"ok": true, "device": {...}}`` last.  Imports nothing of JAX, of the reference package or of
-msgpack.
+numbers, one of training numbers, one of MoE serving numbers, one of SSD
+serving numbers, one of kernels, the card's ``nvidia-smi`` line, and the
+result line ``{"ok": true, "device": {...}}`` last.  Imports nothing of
+JAX, of the reference package or of msgpack.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -161,12 +183,16 @@ FLASH_CASES = (
        ((1, 32, 32, 2, 2, 32), "float32", True, 1, 0.0),
        ((1, 96, 96, 4, 2, 224), "bfloat16", True, 0, 50.0),
        ((1, 64, 16, 2, 1, 32), "float32", True, 4, 0.0)])
+#: the attention kernel's shape on phase 9's path: qwen3-moe-30b-a3b,
+#: head_dim 64, GQA 32:4 (bf16, causal)
+FLASH_MOE = ((4, 2048, 2048, 32, 4, 64), "bfloat16", True, 0, 0.0)
 #: bf16 cases beyond the reference's: the decode check's 2049-token
-#: prefill, gemma2-9b's head_dim with its window and softcap, and rows with
-#: nothing visible (q >= 20)
+#: prefill, gemma2-9b's head_dim with its window and softcap, rows with
+#: nothing visible (q >= 20), and phase 9's shape
 FLASH_EXTRA = [((4, 2049, 2049, 32, 8, 128), "bfloat16", True, 0, 0.0),
                ((1, 96, 96, 4, 2, 224), "bfloat16", True, 16, 50.0),
-               ((1, 64, 16, 2, 1, 32), "bfloat16", True, 4, 0.0)]
+               ((1, 64, 16, 2, 1, 32), "bfloat16", True, 4, 0.0),
+               FLASH_MOE]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: the serving path: granite-8b, B prompts of P tokens, G generated
 SERVE_ARCH = "granite-8b"
@@ -195,6 +221,16 @@ TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 128
 TRAIN_TOL = 2e-2
 #: fp32 parameters, gradients, m and v
 TRAIN_STATE_BYTES_PER_PARAM = 16
+#: phases 9 and 10: the MoE and SSD families served at full width and
+#: depth on phase 5's path (SERVE_B prompts of SERVE_P tokens, SERVE_G
+#: generated, SERVE_REPLICAS replicas)
+MOE_ARCH = "qwen3-moe-30b-a3b"
+SSM_ARCH = "mamba2-780m"
+#: one layer of each on the card against the CPU in float32: its input's
+#: batch and tokens, and the bounds (rtol = atol)
+LAYER_CHECK_B, LAYER_CHECK_S = 2, 256
+MOE_LAYER_TOL = 1e-5
+SSD_LAYER_TOL = 1e-4
 DEVICE = torch.device("cuda")
 
 
@@ -1595,7 +1631,6 @@ def flash_check(kernel: str, case, seed: int, dev) -> float:
 
 
 def flash_phase(seed: int) -> dict:
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import flash_attention as fa
     dev = DEVICE
     out = {}
@@ -1608,16 +1643,34 @@ def flash_phase(seed: int) -> dict:
             worst[case[1]] = max(worst[case[1]], err)
             if case == FLASH_MAIN:
                 main_err = err
+            if case == FLASH_MOE:
+                moe_err = err
         out[kernel] = {"cases": len(taken), "max_abs_err": main_err,
+                       "max_abs_err_moe_shape": moe_err,
                        "max_abs_err_float32": worst["float32"],
                        "max_abs_err_bfloat16": worst["bfloat16"]}
         log(f"kernels: {kernel} within tolerance of the plain version at "
             f"{len(taken)} cases (max |err| float32 {worst['float32']:.3g} "
             f"<= 2e-5 rtol+atol, bfloat16 {worst['bfloat16']:.3g} <= 2e-2; "
             f"serving shape {main_err:.3g})")
-    (B, S, _, H, KV, D), *_ = FLASH_MAIN
-    q, k, v = flash_qkv(FLASH_MAIN[0], "bfloat16", seed, dev)
-    # the yardstick: one PyTorch call computing the same function
+    for kernel, timed in time_flash(FLASH_MAIN, seed, dev).items():
+        out[kernel].update(timed)
+    out["moe_shape"] = time_flash(FLASH_MOE, seed, dev)
+    for kernel in (fa.SM90, fa.SIMT):
+        out["moe_shape"][kernel]["max_abs_err"] = \
+            out[kernel]["max_abs_err_moe_shape"]
+    return out
+
+
+def time_flash(case, seed: int, dev) -> dict:
+    """Both attention kernels at one bf16 causal shape, timed in turns
+    with ``scaled_dot_product_attention`` on the same tensors (the
+    yardstick; the port never calls it), with the plain version's time
+    and the bound; one dict per kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_attention as fa
+    (B, S, _, H, KV, D), *_ = case
+    q, k, v = flash_qkv(case[0], "bfloat16", seed, dev)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
     def library():
@@ -1653,15 +1706,17 @@ def flash_phase(seed: int) -> dict:
         device_ms[kernel] = device_busy_ms(prof, kernel) / 10
     plain_ms = cuda_median_ms(
         lambda: fa.flash_attention_reference(q, k, v, causal=True), runs=5)
-    (bound_ms, bound_by), flops, nbytes = flash_bound_ms(FLASH_MAIN)
+    (bound_ms, bound_by), flops, nbytes = flash_bound_ms(case)
+    out = {}
     for kernel in (fa.SM90, fa.SIMT):
-        out[kernel].update({
+        out[kernel] = {
             "ms": ms[kernel], "turns_ms": turns[kernel],
             "back_to_back_ms": b2b[kernel],
             "library_back_to_back_ms": b2b["library"],
             "device_ms": device_ms[kernel], "plain_ms": plain_ms,
             "library_ms": ms["library"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "flops": flops, "bytes": nbytes})
+            "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+            "shape": list(case[0])}
         log(f"kernels: {kernel} bf16 B={B} S={S} H={H} KV={KV} D={D} "
             f"causal: {ms[kernel]:.6f} ms (median of 40 launches by CUDA "
             f"events; turn medians {turns[kernel][0]:.6f} / "
@@ -1670,9 +1725,9 @@ def flash_phase(seed: int) -> dict:
             f"time by torch.profiler), {bound_ms / ms[kernel]:.3f} of its "
             f"bound, {ms['library'] / ms[kernel]:.3f} x "
             f"scaled_dot_product_attention's speed")
-    log(f"kernels: attention yardsticks at that shape: plain version "
-        f"{plain_ms:.6f} ms, scaled_dot_product_attention {ms['library']:.6f}"
-        f" ms (turn medians {turns['library'][0]:.6f} / "
+    log(f"kernels: attention yardsticks at B={B} S={S} H={H} KV={KV} D={D}: "
+        f"plain version {plain_ms:.6f} ms, scaled_dot_product_attention "
+        f"{ms['library']:.6f} ms (turn medians {turns['library'][0]:.6f} / "
         f"{turns['library'][1]:.6f}; back to back {b2b['library'][0]:.6f} / "
         f"{b2b['library'][1]:.6f}; max |diff| to the plain version "
         f"{lib_err:.3g}); bound {bound_ms:.6f} ms ({bound_by}: "
@@ -1684,83 +1739,39 @@ def flash_phase(seed: int) -> dict:
 
 # ------------------------------------------------------------ phase 5: serve
 def serve_phase(seed: int) -> dict:
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch import configs as C
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve as S
     from repro_torch.models import transformer as T
-    dev = DEVICE
-    cfg = C.get_config(SERVE_ARCH)
-    n_params = T.count_params(cfg)
-    t0 = time.perf_counter()
-    params = T.init_params(cfg, seed=seed, device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    weight_bytes = sum(t.numel() * t.element_size() for t in _tensors(params))
-    log(f"serve: {SERVE_ARCH} at full width ({cfg.n_layers} layers, "
-        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
-        f"{n_params} parameters): {weight_bytes / 1e9:.3f} GB of weights on "
-        f"the card in {init_s:.3f} s")
-    tokens = S.make_tokens(cfg, SERVE_B, SERVE_P, seed=seed, device=dev)
+    cfg, params, res = family_params(SERVE_ARCH, seed, "serve")
+    dev, P = DEVICE, SERVE_P
+    tokens = S.make_tokens(cfg, SERVE_B, P, seed=seed, device=dev)
     torch.cuda.reset_peak_memory_stats()
-
-    fa.launches = fa.launches_sm90 = fa.launches_simt = 0
-    out = S.serve(cfg, params, tokens, gen_len=SERVE_G,
-                  replicas=SERVE_REPLICAS)
-    launches = fa.launches_sm90
-    simt_launches = fa.launches_simt
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(launches == cfg.n_layers == fa.launches,
-          f"the prefill launched {fa.SM90} {launches} times ({fa.launches} "
-          f"attention launches in all), not once per layer ({cfg.n_layers})")
-    check(simt_launches == 0, f"the prefill launched {fa.SIMT} "
-          f"{simt_launches} times")
-    logits, gen = out["prefill_logits"], out["generated"]
-    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
-    check(tuple(gen.shape) == (SERVE_B, SERVE_G) and
-          bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
-          f"generated tokens malformed: {tuple(gen.shape)}")
-    check(out["evicted_per_replica"] == [1] * SERVE_REPLICAS,
-          f"evicted_per_replica {out['evicted_per_replica']}")
-    check(out["remaining_pages"] == [SERVE_B - 1] * SERVE_REPLICAS,
-          f"remaining_pages {out['remaining_pages']}")
-    prefill_ms = out["prefill_s"] * 1e3
-    steps = out["decode_steps"]
-    decode_ms = out["decode_s"] * 1e3 / steps
-    decode_tok_s = SERVE_B * steps / out["decode_s"]
-    total_tok_s = SERVE_B * SERVE_G / (out["prefill_s"] + out["decode_s"])
-    log(f"serve: prefill {SERVE_B} x {SERVE_P} tokens {prefill_ms:.3f} ms "
-        f"({SERVE_B * SERVE_P / out['prefill_s']:.1f} prompt tokens/s), "
-        f"decode {decode_ms:.3f} ms per step over {steps} steps "
-        f"({decode_tok_s:.1f} generated tokens/s), {SERVE_B} x {SERVE_G} "
-        f"tokens generated in all at {total_tok_s:.1f} tokens/s; "
-        f"{fa.SM90} launches {launches}, {fa.SIMT} launches "
-        f"{simt_launches}; peak memory {peak_gb:.3f} GB")
+    out, launches, slot_launches = serve_family(cfg, params, tokens,
+                                                cfg.n_layers, "serve")
+    res.update(serve_numbers(out))
+    res.update({"attention_launches": launches,
+                "fid_slots_launches": slot_launches,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    log(f"serve: prefill {SERVE_B} x {P} tokens {res['prefill_ms']:.3f} ms "
+        f"({res['prompt_tokens_per_s']:.1f} prompt tokens/s), decode "
+        f"{res['decode_ms_per_step']:.3f} ms per step over "
+        f"{res['decode_steps']} steps ({res['decode_tokens_per_s']:.1f} "
+        f"generated tokens/s), {SERVE_B} x {SERVE_G} tokens generated in all "
+        f"at {res['generated_tokens_per_s']:.1f} tokens/s; attention "
+        f"launches {launches}, fid_slots {slot_launches}; peak memory "
+        f"{res['peak_memory_gb']:.3f} GB")
     log(f"serve: invalidation over {SERVE_REPLICAS} replicas: evicted "
         f"{out['evicted_per_replica']}, remaining pages "
         f"{out['remaining_pages']}")
+    # the prefill alone, then the same run again, under the profiler
+    res.update(profiled_serve(cfg, params, tokens, cfg.n_layers, "serve"))
+    res["kernel_share_of_prefill"] = (res["kernel_ms_in_prefill"]
+                                      / res["profiled_prefill_ms"])
+    log_profiled("serve", res)
 
-    # the same run again under the profiler: where the card's time went
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        again = S.serve(cfg, params, tokens, gen_len=SERVE_G,
-                        replicas=SERVE_REPLICAS)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms = device_busy_ms(prof)
-    kernel_ms = device_busy_ms(prof, fa.SM90)
-    seen = {name: kernel_count(prof, name) for name in (fa.SM90, fa.SIMT)}
-    check(seen == {fa.SM90: cfg.n_layers, fa.SIMT: 0},
-          f"the profiled prefill's attention kernels by name: {seen}")
-    prof_prefill_ms = again["prefill_s"] * 1e3
-    log(f"serve (profiled run): {wall_ms:.3f} ms wall, device busy "
-        f"{busy_ms:.3f} ms (idle {100 * (1 - busy_ms / wall_ms):.3f} %); "
-        f"prefill {prof_prefill_ms:.3f} ms, of which {fa.SM90} "
-        f"{kernel_ms:.3f} ms ({100 * kernel_ms / prof_prefill_ms:.3f} %); "
-        f"kernels by name: {seen}")
-
+    logits = out["prefill_logits"]
     with torch.inference_mode():
-        naive, _ = T.prefill(params, cfg, tokens, max_seq=SERVE_P,
-                             impl="naive")
+        naive, _ = T.prefill(params, cfg, tokens, max_seq=P, impl="naive")
         flash_vs_naive = float((logits - naive).abs().max())
         del naive
         torch.cuda.empty_cache()
@@ -1768,69 +1779,40 @@ def serve_phase(seed: int) -> dict:
               f"naive attention differ by {flash_vs_naive} > {LOGIT_ATOL}")
         # one decode step at position P after a prefill of P tokens, against
         # the last logits of a prefill of P + 1 tokens
-        ext = S.make_tokens(cfg, SERVE_B, SERVE_P + 1, seed=seed + 1,
-                            device=dev)
+        ext = S.make_tokens(cfg, SERVE_B, P + 1, seed=seed + 1, device=dev)
         full, _ = T.prefill(params, cfg, ext, impl="flash")
-        _, cache = T.prefill(params, cfg, ext[:, :SERVE_P],
-                             max_seq=SERVE_P + 1 + DECODE_PROFILE_STEPS,
+        _, cache = T.prefill(params, cfg, ext[:, :P],
+                             max_seq=P + 1 + DECODE_PROFILE_STEPS,
                              impl="flash")
-        pos = torch.full((SERVE_B,), SERVE_P, dtype=torch.int32, device=dev)
-        step, cache = T.decode_step(params, cfg, ext[:, SERVE_P:], cache, pos)
+        pos = torch.full((SERVE_B,), P, dtype=torch.int32, device=dev)
+        step, cache = T.decode_step(params, cfg, ext[:, P:], cache, pos)
         decode_vs_prefill = float((step[:, 0] - full).abs().max())
         # decode alone under the profiler: the card's share of a step
-        token = torch.argmax(step[:, 0], -1)[:, None]
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(1, DECODE_PROFILE_STEPS + 1):
-                step, cache = T.decode_step(params, cfg, token, cache,
-                                            pos + i)
-                token = torch.argmax(step[:, 0], -1)[:, None]
-            torch.cuda.synchronize()
-            step_wall_ms = (time.perf_counter() - t0) * 1e3 / \
-                DECODE_PROFILE_STEPS
-        step_busy_ms = device_busy_ms(prof) / DECODE_PROFILE_STEPS
+        res.update(profiled_decode(cfg, params, step, cache, pos))
         del cache
-    check(decode_vs_prefill <= LOGIT_ATOL, f"decode at position {SERVE_P} "
-          f"differs from a {SERVE_P + 1}-token prefill by {decode_vs_prefill}"
+    check(decode_vs_prefill <= LOGIT_ATOL, f"decode at position {P} "
+          f"differs from a {P + 1}-token prefill by {decode_vs_prefill}"
           f" > {LOGIT_ATOL}")
     log(f"serve: decode alone (profiled, {DECODE_PROFILE_STEPS} steps): "
-        f"{step_wall_ms:.3f} ms wall per step, device busy {step_busy_ms:.3f}"
-        f" ms per step (idle {100 * (1 - step_busy_ms / step_wall_ms):.3f} "
-        f"%); reading the weights once takes at least "
-        f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
-    phase_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        f"{res['decode_profiled_wall_ms_per_step']:.3f} ms wall per step, "
+        f"device busy {res['decode_device_busy_ms_per_step']:.3f} ms per step"
+        f" (idle {100 * res['decode_idle_share']:.3f} %); reading the "
+        f"weights once takes at least "
+        f"{res['weight_bytes'] / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    res["phase_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"serve: peak device memory over the whole phase, checks included: "
-        f"{phase_peak_gb:.3f} GB")
+        f"{res['phase_peak_memory_gb']:.3f} GB")
     log(f"serve: last-position logits, flash vs naive attention: max |diff| "
         f"{flash_vs_naive:.6f} (bound {LOGIT_ATOL}); decode step at "
-        f"position {SERVE_P} vs a {SERVE_P + 1}-token prefill: max |diff| "
+        f"position {P} vs a {P + 1}-token prefill: max |diff| "
         f"{decode_vs_prefill:.6f} (bound {LOGIT_ATOL}); |logits| up to "
         f"{float(logits.abs().max()):.3f}")
-    del params
+    res.update({"flash_vs_naive_max_abs": flash_vs_naive,
+                "decode_vs_prefill_max_abs": decode_vs_prefill,
+                "logit_bound": LOGIT_ATOL})
+    del params, out, logits
     torch.cuda.empty_cache()
-    return {"arch": SERVE_ARCH, "params": n_params,
-            "weight_bytes": weight_bytes, "batch": SERVE_B,
-            "prompt_len": SERVE_P, "gen_len": SERVE_G,
-            "decode_steps": steps, "prefill_ms": prefill_ms,
-            "decode_ms_per_step": decode_ms,
-            "decode_tokens_per_s": decode_tok_s,
-            "generated_tokens_per_s": total_tok_s,
-            "flash_launches": launches, "simt_launches": simt_launches,
-            "profiled_kernel_launches": seen, "peak_memory_gb": peak_gb,
-            "phase_peak_memory_gb": phase_peak_gb,
-            "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "idle_share": 1 - busy_ms / wall_ms,
-            "profiled_prefill_ms": prof_prefill_ms,
-            "kernel_ms_in_prefill": kernel_ms,
-            "kernel_share_of_prefill": kernel_ms / prof_prefill_ms,
-            "decode_profiled_wall_ms_per_step": step_wall_ms,
-            "decode_device_busy_ms_per_step": step_busy_ms,
-            "flash_vs_naive_max_abs": flash_vs_naive,
-            "decode_vs_prefill_max_abs": decode_vs_prefill,
-            "logit_bound": LOGIT_ATOL,
-            "evicted_per_replica": out["evicted_per_replica"],
-            "remaining_pages": out["remaining_pages"]}
+    return res
 
 
 # ------------------------------------------------------------ phase 8: train
@@ -1956,6 +1938,17 @@ def device_ms_by_class(prof) -> dict:
     return out
 
 
+def top_device_ops(prof, n: int = 8) -> list:
+    """The ``n`` operations of a CUDA-only profile with the most device
+    time: (name, ms, calls)."""
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    events = sorted(prof.key_averages(), key=lambda e: -device_us(e))
+    return [(e.key, round(device_us(e) / 1e3, 3), e.count)
+            for e in events[:n]]
+
+
 def train_phase(seed: int, smi: str) -> dict:
     import tempfile
     import warnings
@@ -2018,11 +2011,7 @@ def train_phase(seed: int, smi: str) -> dict:
     step_s = statistics.median(timed)
     busy_ms = device_busy_ms(prof)
     by_class = device_ms_by_class(prof)
-    events = sorted(prof.key_averages(), key=lambda e: -getattr(
-        e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))
-    top = [(e.key, round(getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0))
-                         / 1e3, 3), e.count) for e in events[:8]]
+    top = top_device_ops(prof)
     out.update({
         "init_s": init_s, "losses": [h["loss"] for h in hist],
         "grad_norms": norms, "lrs": [m["lr"] for _s, m in got],
@@ -2145,6 +2134,499 @@ def train_phase(seed: int, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------- phases 9 and 10: MoE and SSD
+class RouteLog:
+    """While active, keeps each MoE layer's routing (``top_e``, ``keep``
+    from ``layers.moe_route``) in call order.  With ``replay``, call i
+    routes to ``replay[i]``'s experts instead of the router's own top-k,
+    weighted by its own probabilities (a check's instrument: the same
+    computation with the routing of another run)."""
+
+    def __init__(self, replay=None):
+        self.calls = []
+        self.replay = replay
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self._real = real = L.moe_route
+
+        def route(p, x, cfg, capacity):
+            r = real(p, x, cfg, capacity)
+            if self.replay is not None:
+                top_e = self.replay[len(self.calls)]
+                top_p = r.probs.gather(-1, top_e)
+                top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
+                pos, keep = L.route_slots(top_e, top_p, cfg.n_experts,
+                                          capacity)
+                r = r._replace(top_p=top_p, top_e=top_e, pos=pos, keep=keep)
+            self.calls.append((r.top_e, r.keep))
+            return r
+
+        L.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+        L.moe_route = self._real
+
+    def experts(self):
+        return [e for e, _ in self.calls]
+
+
+def route_flips(a: list, b: list, n_experts: int) -> list:
+    """Layer by layer, how many router choices of run ``a`` run ``b``
+    did not make on the same tokens."""
+    counts = []
+    for ea, eb in zip(a, b, strict=True):
+        shape = (*ea.shape[:-1], n_experts)
+        oh_a = torch.zeros(shape, device=ea.device).scatter_(-1, ea, 1.0)
+        oh_b = torch.zeros(shape, device=eb.device).scatter_(-1, eb, 1.0)
+        counts.append(int((oh_a > oh_b).sum()))
+    return counts
+
+
+def hold_logits(free: float, replayed: float, flips: list,
+                what: str) -> None:
+    """``what``'s logits within LOGIT_ATOL with one run replaying the
+    other's routes (the same computation but for rounding); free-running
+    too, unless route flips account for the excess."""
+    check(replayed <= LOGIT_ATOL, f"{what} with the same routes: max |diff|"
+          f" {replayed} > {LOGIT_ATOL}")
+    check(free <= LOGIT_ATOL or sum(flips) > 0,
+          f"{what}: max |diff| {free} > {LOGIT_ATOL} with no route flipped")
+
+
+def layer_params(lp: dict, device, dtype=torch.float32) -> dict:
+    return {k: v.to(device=device, dtype=dtype) for k, v in lp.items()}
+
+
+def moe_card_vs_cpu(cfg, p: dict, batch: int, seq: int, seed: int) -> dict:
+    """One MoE layer (parameters ``p``) in float32 on the card and on the
+    CPU, the same seeded input: its routing decisions must be equal and
+    its output within MOE_LAYER_TOL (rtol = atol)."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(batch, seq, cfg.d_model, generator=gen)
+    C = L.moe_capacity(cfg, seq)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        pd, xd = layer_params(p, dev), x.to(dev)
+        r = L.moe_route(pd, xd, cfg, C)
+        y, aux = L.moe_layer(pd, xd, cfg)
+        got[dev] = [t.cpu() for t in (r.top_e, r.pos, r.keep, y, aux)]
+        del pd
+    (e1, p1, k1, y1, a1), (e0, p0, k0, y0, a0) = got["cuda"], got["cpu"]
+    err = (y1 - y0).abs()
+    out = {"batch": batch, "seq": seq, "capacity": C,
+           "top_e_equal": bool(torch.equal(e1, e0)),
+           "pos_equal": bool(torch.equal(p1, p0)),
+           "keep_equal": bool(torch.equal(k1, k0)),
+           "dropped_share": float((~k0).float().mean()),
+           "max_abs_err": float(err.max()),
+           "beyond_tol": int((err > MOE_LAYER_TOL
+                              + MOE_LAYER_TOL * y0.abs()).sum()),
+           "aux_abs_err": float((a1 - a0).abs())}
+    out["ok"] = (out["top_e_equal"] and out["pos_equal"] and out["keep_equal"]
+                 and out["beyond_tol"] == 0)
+    return out
+
+
+def ssd_card_vs_cpu(cfg, p: dict, batch: int, seq: int, seed: int) -> dict:
+    """One SSD layer (parameters ``p``) in float32 on the card and on the
+    CPU, the same seeded inputs: the full-sequence output, its cache and
+    two decode steps from it within SSD_LAYER_TOL (rtol = atol)."""
+    from repro_torch.models import ssd as SSD
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(batch, seq, cfg.d_model, generator=gen)
+    steps = [torch.randn(batch, 1, cfg.d_model, generator=gen)
+             for _ in range(2)]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        pd = layer_params(p, dev)
+        y, cache = SSD.ssd_layer(pd, x.to(dev), cfg, return_cache=True)
+        outs = [y, cache["conv"].clone(), cache["state"].clone()]
+        for t in steps:
+            outs.append(SSD.ssd_decode(pd, t.to(dev), cache, cfg)[0])
+        outs += [cache["conv"], cache["state"]]
+        got[dev] = [t.cpu() for t in outs]
+        del pd
+    names = ("output", "conv", "state", "decode 1", "decode 2",
+             "conv after", "state after")
+    errs = {n: float((a - b).abs().max())
+            for n, a, b in zip(names, got["cuda"], got["cpu"])}
+    bad = sum(int(((a - b).abs() > SSD_LAYER_TOL + SSD_LAYER_TOL * b.abs())
+                  .sum()) for a, b in zip(got["cuda"], got["cpu"]))
+    return {"batch": batch, "seq": seq, "max_abs_err": errs,
+            "beyond_tol": bad, "ok": bad == 0}
+
+
+def serve_family(cfg, params, tokens, n_attn: int, tag: str):
+    """Phase 5's serving run for another family: launches of each
+    attention kernel counted from 0 (``n_attn`` wgmma launches, one per
+    attention layer, and none of the CUDA-core kernel) and of the
+    ``fid_slots`` kernel (none: serving routes no records), finite
+    logits, well-formed tokens and phase 5's invalidation counts.
+    Returns the run's output, the attention launches by kernel and the
+    ``fid_slots`` launches."""
+    from repro_torch.kernels import flash_attention as fa, stream_ops
+    from repro_torch.launch import serve as S
+    fa.launches = fa.launches_sm90 = fa.launches_simt = 0
+    stream_ops.launches = 0
+    out = S.serve(cfg, params, tokens, gen_len=SERVE_G,
+                  replicas=SERVE_REPLICAS)
+    launches = {fa.SM90: fa.launches_sm90, fa.SIMT: fa.launches_simt}
+    slots = stream_ops.launches
+    check(launches == {fa.SM90: n_attn, fa.SIMT: 0} and
+          fa.launches == n_attn, f"{tag}: attention launches {launches}, "
+          f"not {n_attn} of {fa.SM90} and none of {fa.SIMT}")
+    check(slots == 0, f"{tag}: {slots} fid_slots launches while serving")
+    logits, gen = out["prefill_logits"], out["generated"]
+    check(bool(torch.isfinite(logits).all()), f"{tag}: logits not finite")
+    check(tuple(gen.shape) == (SERVE_B, SERVE_G) and
+          bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
+          f"{tag}: generated tokens malformed: {tuple(gen.shape)}")
+    check(out["evicted_per_replica"] == [1] * SERVE_REPLICAS,
+          f"{tag}: evicted_per_replica {out['evicted_per_replica']}")
+    check(out["remaining_pages"] == [SERVE_B - 1] * SERVE_REPLICAS,
+          f"{tag}: remaining_pages {out['remaining_pages']}")
+    return out, launches, slots
+
+
+def serve_numbers(out) -> dict:
+    steps = out["decode_steps"]
+    return {"prefill_ms": out["prefill_s"] * 1e3,
+            "prompt_tokens_per_s": SERVE_B * SERVE_P / out["prefill_s"],
+            "decode_ms_per_step": out["decode_s"] * 1e3 / steps,
+            "decode_tokens_per_s": SERVE_B * steps / out["decode_s"],
+            "generated_tokens_per_s": SERVE_B * SERVE_G
+            / (out["prefill_s"] + out["decode_s"]),
+            "decode_steps": steps,
+            "evicted_per_replica": out["evicted_per_replica"],
+            "remaining_pages": out["remaining_pages"]}
+
+
+def profiled_serve(cfg, params, tokens, n_attn: int, tag: str) -> dict:
+    """The launcher's prefill alone under the profiler (its attention
+    kernels by name: ``n_attn`` of the wgmma kernel, none of the
+    CUDA-core one; its device time), then the whole serving run again
+    under another (device busy against wall, by kind of kernel).  The
+    names are counted on the short profile: a profile of the whole run
+    holds some 30,000 kernel records, and one of them went missing once
+    while the wrapper's counters were exact."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as S
+    from repro_torch.runtime.steps import build_prefill_step
+    prefill = build_prefill_step(cfg, max_seq=tokens.shape[1] + SERVE_G,
+                                 attn_impl="flash")
+    torch.cuda.synchronize()
+    with torch.inference_mode(), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_wall_ms = (time.perf_counter() - t0) * 1e3
+    seen = {name: kernel_count(prof, name) for name in (fa.SM90, fa.SIMT)}
+    check(seen == {fa.SM90: n_attn, fa.SIMT: 0},
+          f"{tag}: the profiled prefill's attention kernels by name: {seen}")
+    out = {"profiled_prefill_ms": prefill_wall_ms,
+           "prefill_device_busy_ms": device_busy_ms(prof),
+           "kernel_ms_in_prefill": device_busy_ms(prof, fa.SM90),
+           "profiled_kernel_launches": seen}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        S.serve(cfg, params, tokens, gen_len=SERVE_G,
+                replicas=SERVE_REPLICAS)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = device_busy_ms(prof)
+    out.update({"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                "idle_share": 1 - busy_ms / wall_ms,
+                "device_ms_by_class": device_ms_by_class(prof),
+                "top_device_ops_ms": top_device_ops(prof)})
+    return out
+
+
+def log_profiled(tag: str, res: dict) -> None:
+    log(f"{tag} (profiled prefill alone): {res['profiled_prefill_ms']:.3f} "
+        f"ms wall, device busy {res['prefill_device_busy_ms']:.3f} ms, of "
+        f"which the wgmma kernel {res['kernel_ms_in_prefill']:.3f} ms; "
+        f"kernels by name {res['profiled_kernel_launches']}")
+    by_class = res["device_ms_by_class"]
+    log(f"{tag} (profiled serving run): {res['profiled_wall_ms']:.3f} ms "
+        f"wall, device busy {res['device_busy_ms']:.3f} ms (idle "
+        f"{100 * res['idle_share']:.3f} %); device ms by kind of kernel: "
+        f"{', '.join(f'{k} {v:.3f}' for k, v in by_class.items())}; top "
+        f"device operations (ms, calls): "
+        f"{[(name[:60], ms, n) for name, ms, n in res['top_device_ops_ms']]}")
+
+
+def profiled_decode(cfg, params, step, cache, pos) -> dict:
+    """DECODE_PROFILE_STEPS decode steps alone under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as T
+    token = torch.argmax(step[:, 0], -1)[:, None]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(1, DECODE_PROFILE_STEPS + 1):
+            step, cache = T.decode_step(params, cfg, token, cache, pos + i)
+            token = torch.argmax(step[:, 0], -1)[:, None]
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / DECODE_PROFILE_STEPS
+    busy = device_busy_ms(prof) / DECODE_PROFILE_STEPS
+    return {"decode_profiled_wall_ms_per_step": wall,
+            "decode_device_busy_ms_per_step": busy,
+            "decode_idle_share": 1 - busy / wall,
+            "decode_device_ms_by_class": {
+                k: v / DECODE_PROFILE_STEPS
+                for k, v in device_ms_by_class(prof).items()},
+            "decode_top_device_ops_ms": top_device_ops(prof)}
+
+
+def family_params(arch: str, seed: int, tag: str):
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    cfg = C.get_config(arch)
+    # phase 8's trainers hold themselves in reference cycles (a wrapped
+    # checkpoint_tree): collect them before measuring what is left
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=seed, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    out = {"arch": arch, "params": T.count_params(cfg),
+           "active_params": T.count_params(cfg, active_only=True),
+           "layers": cfg.n_layers, "weight_bytes": weight_bytes,
+           "init_s": init_s, "batch": SERVE_B, "prompt_len": SERVE_P,
+           "gen_len": SERVE_G, "held_by_earlier_phases_gb": held_gb}
+    log(f"{tag}: {arch} at full width and depth ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {out['params']} parameters, "
+        f"{out['active_params']} active): {weight_bytes / 1e9:.3f} GB of "
+        f"weights on the card in {init_s:.3f} s; {held_gb:.3f} GB were "
+        "still allocated by earlier phases")
+    return cfg, params, out
+
+
+def moe_phase(seed: int, smi: str) -> dict:
+    from repro_torch.launch import serve as S
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg, params, res = family_params(MOE_ARCH, seed, "moe")
+    dev, n, P = DEVICE, cfg.n_layers, SERVE_P
+    expert_bytes = sum(t.numel() * t.element_size() for lp in params["layers"]
+                       for k, t in lp["moe"].items() if k in L.EXPERT_KEYS)
+    tokens = S.make_tokens(cfg, SERVE_B, P, seed=seed, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    with RouteLog() as timed:
+        out, launches, slot_launches = serve_family(cfg, params, tokens, n,
+                                                    "moe")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prefill_keep = [k for _, k in timed.calls[:n]]
+    decode_keep = [k for _, k in timed.calls[n:]]
+    check(len(decode_keep) == n * (SERVE_G - 1),
+          f"moe: {len(timed.calls)} routed layers, not {n} x {SERVE_G}")
+    dropped = [int((~k).sum()) for k in prefill_keep]
+    slots = prefill_keep[0].numel()
+    # where in the prompt the drops fall: the share of each quarter of the
+    # token positions' slots dropped, over all layers
+    by_quarter = torch.stack([
+        (~k).reshape(SERVE_B, 4, P // 4, -1).float().mean((0, 2, 3))
+        for k in prefill_keep]).mean(0).tolist()
+    decode_dropped = sum(int((~k).sum()) for k in decode_keep)
+    check(decode_dropped == 0, f"moe: decode dropped {decode_dropped} slots")
+    res.update(serve_numbers(out))
+    res.update({"attention_launches": launches,
+                "fid_slots_launches": slot_launches,
+                "peak_memory_gb": peak_gb,
+                "capacity": L.moe_capacity(cfg, P),
+                "dropped_share": sum(dropped) / (slots * n),
+                "dropped_share_by_layer": [d / slots for d in dropped],
+                "dropped_share_by_position_quarter": by_quarter,
+                "decode_dropped": decode_dropped,
+                "expert_bytes": expert_bytes,
+                "all_experts_read_ms": expert_bytes / HBM_BYTES_PER_S * 1e3,
+                "weights_read_ms": res["weight_bytes"] / HBM_BYTES_PER_S
+                * 1e3})
+    log(f"moe: prefill {SERVE_B} x {P} tokens {res['prefill_ms']:.3f} ms "
+        f"({res['prompt_tokens_per_s']:.1f} prompt tokens/s), decode "
+        f"{res['decode_ms_per_step']:.3f} ms per step over "
+        f"{res['decode_steps']} steps ({res['decode_tokens_per_s']:.1f} "
+        f"generated tokens/s); attention launches {launches}, fid_slots "
+        f"{slot_launches}; capacity "
+        f"{res['capacity']} slots per expert and row, dropped "
+        f"{100 * res['dropped_share']:.4f} % of the prefill's (token, k) "
+        f"slots ({sum(dropped)} of {slots * n}; by layer from "
+        f"{100 * min(dropped) / slots:.4f} to {100 * max(dropped) / slots:.4f}"
+        f" %; by quarter of the prompt's positions "
+        f"{[round(100 * q, 4) for q in by_quarter]} %), decode none; peak "
+        f"memory {peak_gb:.3f} GB [{smi}]")
+    res.update(profiled_serve(cfg, params, tokens, n, "moe"))
+    log_profiled("moe", res)
+
+    logits = out["prefill_logits"]
+    with torch.inference_mode():
+        # flash vs naive attention, the same prompts and capacity
+        flash_e = timed.experts()[:n]
+        with RouteLog() as naive_routes:
+            naive, _ = T.prefill(params, cfg, tokens, max_seq=P, impl="naive")
+        flips = route_flips(flash_e, naive_routes.experts(), cfg.n_experts)
+        fvn = float((logits - naive).abs().max())
+        del naive
+        with RouteLog(replay=flash_e):
+            naive, _ = T.prefill(params, cfg, tokens, max_seq=P, impl="naive")
+        fvn_replayed = float((logits - naive).abs().max())
+        del naive, naive_routes
+        torch.cuda.empty_cache()
+        res["flash_vs_naive"] = {
+            "max_abs": fvn, "max_abs_same_routes": fvn_replayed,
+            "route_flips_by_layer": flips}
+        log(f"moe: last-position logits, flash vs naive attention: max |diff|"
+            f" {fvn:.6f}; with the flash run's routes replayed "
+            f"{fvn_replayed:.6f} (bound {LOGIT_ATOL}); router choices that "
+            f"differ, by layer: {flips}")
+        hold_logits(fvn, fvn_replayed, flips, "moe: flash vs naive prefill")
+
+        # decode at P against a P + 1 token prefill, with capacity for
+        # every slot (decode never drops; a prefill at the default does)
+        nd = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+        check(L.moe_capacity(nd, P + 1) == P + 1, "moe: no-drop capacity")
+        ext = S.make_tokens(cfg, SERVE_B, P + 1, seed=seed + 1, device=dev)
+        pos = torch.full((SERVE_B,), P, dtype=torch.int32, device=dev)
+        with RouteLog() as full_routes:
+            full, _ = T.prefill(params, nd, ext, impl="flash")
+        torch.cuda.empty_cache()
+        max_seq = P + 1 + DECODE_PROFILE_STEPS
+        with RouteLog() as dec_routes:
+            _, cache = T.prefill(params, nd, ext[:, :P], max_seq=max_seq,
+                                 impl="flash")
+            step, cache = T.decode_step(params, nd, ext[:, P:], cache, pos)
+        full_e = full_routes.experts()
+        check(all(bool(k.all())
+                  for _, k in full_routes.calls + dec_routes.calls),
+              "moe: a slot dropped at the no-drop capacity")
+        replay = [e[:, :P] for e in full_e] + [e[:, P:] for e in full_e]
+        flips = route_flips(replay, dec_routes.experts(), cfg.n_experts)
+        flips = [a + b for a, b in zip(flips[:n], flips[n:])]
+        dvp = float((step[:, 0] - full).abs().max())
+        del full_routes, dec_routes
+        with RouteLog(replay=replay):
+            _, cache_r = T.prefill(params, nd, ext[:, :P], max_seq=P + 1,
+                                   impl="flash")
+            step_r, _ = T.decode_step(params, nd, ext[:, P:], cache_r, pos)
+        dvp_replayed = float((step_r[:, 0] - full).abs().max())
+        del cache_r, step_r
+        torch.cuda.empty_cache()
+        res["decode_vs_prefill"] = {
+            "max_abs": dvp, "max_abs_same_routes": dvp_replayed,
+            "route_flips_by_layer": flips,
+            "capacity_factor": nd.capacity_factor}
+        log(f"moe: decode at position {P} vs a {P + 1}-token prefill (capacity"
+            f" factor {nd.capacity_factor}: nothing drops): max |diff| "
+            f"{dvp:.6f}; with the prefill's routes replayed "
+            f"{dvp_replayed:.6f} (bound {LOGIT_ATOL}); router choices that "
+            f"differ, by layer: {flips}")
+        hold_logits(dvp, dvp_replayed, flips, "moe: decode vs prefill")
+        res.update(profiled_decode(cfg, params, step, cache, pos))
+        del cache, step, full
+    log(f"moe: decode alone (profiled, {DECODE_PROFILE_STEPS} steps): "
+        f"{res['decode_profiled_wall_ms_per_step']:.3f} ms wall per step, "
+        f"device busy {res['decode_device_busy_ms_per_step']:.3f} ms (idle "
+        f"{100 * res['decode_idle_share']:.3f} %); reading every expert "
+        f"({expert_bytes / 1e9:.3f} GB) takes at least "
+        f"{res['all_experts_read_ms']:.3f} ms, all the weights "
+        f"{res['weights_read_ms']:.3f} ms [{smi}]")
+    log(f"moe: a decode step's device ms by kind of kernel: "
+        f"{res['decode_device_ms_by_class']}; top device operations over "
+        f"{DECODE_PROFILE_STEPS} steps (ms, calls): "
+        f"{[(k[:60], ms, c) for k, ms, c in res['decode_top_device_ops_ms']]}")
+
+    layer = moe_card_vs_cpu(cfg, params["layers"][0]["moe"], LAYER_CHECK_B,
+                            LAYER_CHECK_S, seed)
+    res["layer_card_vs_cpu"] = layer
+    log(f"moe: layer 0 in float32, card vs CPU, {LAYER_CHECK_B} x "
+        f"{LAYER_CHECK_S} tokens at capacity {layer['capacity']} (dropped "
+        f"{100 * layer['dropped_share']:.3f} %): top_e, pos, keep equal "
+        f"{layer['top_e_equal']}, {layer['pos_equal']}, "
+        f"{layer['keep_equal']}; output max |diff| {layer['max_abs_err']:.3g}"
+        f" ({layer['beyond_tol']} beyond rtol=atol={MOE_LAYER_TOL}); aux "
+        f"|diff| {layer['aux_abs_err']:.3g}")
+    check(layer["ok"], f"moe: layer 0 on the card differs from the CPU: "
+          f"{layer}")
+    res["phase_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"moe: peak device memory over the whole phase, checks included: "
+        f"{res['phase_peak_memory_gb']:.3f} GB")
+    del params, out, logits, timed
+    torch.cuda.empty_cache()
+    return res
+
+
+def ssm_phase(seed: int, smi: str) -> dict:
+    from repro_torch.launch import serve as S
+    from repro_torch.models import transformer as T
+    cfg, params, res = family_params(SSM_ARCH, seed, "ssm")
+    dev, P = DEVICE, SERVE_P
+    tokens = S.make_tokens(cfg, SERVE_B, P, seed=seed, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    out, launches, slot_launches = serve_family(cfg, params, tokens, 0,
+                                                "ssm")
+    res.update(serve_numbers(out))
+    res.update({"attention_launches": launches,
+                "fid_slots_launches": slot_launches,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "weights_read_ms": res["weight_bytes"] / HBM_BYTES_PER_S
+                * 1e3})
+    log(f"ssm: prefill {SERVE_B} x {P} tokens {res['prefill_ms']:.3f} ms "
+        f"({res['prompt_tokens_per_s']:.1f} prompt tokens/s), decode "
+        f"{res['decode_ms_per_step']:.3f} ms per step over "
+        f"{res['decode_steps']} steps ({res['decode_tokens_per_s']:.1f} "
+        f"generated tokens/s); attention launches {launches}, fid_slots "
+        f"{slot_launches}; peak memory "
+        f"{res['peak_memory_gb']:.3f} GB [{smi}]")
+    res.update(profiled_serve(cfg, params, tokens, 0, "ssm"))
+    log_profiled("ssm", res)
+    with torch.inference_mode():
+        ext = S.make_tokens(cfg, SERVE_B, P + 1, seed=seed + 1, device=dev)
+        full, _ = T.prefill(params, cfg, ext, impl="flash")
+        _, cache = T.prefill(params, cfg, ext[:, :P],
+                             max_seq=P + 1 + DECODE_PROFILE_STEPS,
+                             impl="flash")
+        pos = torch.full((SERVE_B,), P, dtype=torch.int32, device=dev)
+        step, cache = T.decode_step(params, cfg, ext[:, P:], cache, pos)
+        dvp = float((step[:, 0] - full).abs().max())
+        res["decode_vs_prefill_max_abs"] = dvp
+        res.update(profiled_decode(cfg, params, step, cache, pos))
+        del cache, step, full
+    check(dvp <= LOGIT_ATOL, f"ssm: decode at position {P} differs from a "
+          f"{P + 1}-token prefill by {dvp} > {LOGIT_ATOL}")
+    log(f"ssm: decode at position {P} vs a {P + 1}-token prefill: max |diff|"
+        f" {dvp:.6f} (bound {LOGIT_ATOL}); decode alone (profiled, "
+        f"{DECODE_PROFILE_STEPS} steps): "
+        f"{res['decode_profiled_wall_ms_per_step']:.3f} ms wall per step, "
+        f"device busy {res['decode_device_busy_ms_per_step']:.3f} ms (idle "
+        f"{100 * res['decode_idle_share']:.3f} %); reading the weights once "
+        f"takes at least {res['weights_read_ms']:.3f} ms [{smi}]")
+    log(f"ssm: a decode step's device ms by kind of kernel: "
+        f"{res['decode_device_ms_by_class']}; top device operations over "
+        f"{DECODE_PROFILE_STEPS} steps (ms, calls): "
+        f"{[(k[:60], ms, c) for k, ms, c in res['decode_top_device_ops_ms']]}")
+    layer = ssd_card_vs_cpu(cfg, params["layers"][0]["ssm"], LAYER_CHECK_B,
+                            LAYER_CHECK_S, seed)
+    res["layer_card_vs_cpu"] = layer
+    log(f"ssm: layer 0 in float32, card vs CPU, {LAYER_CHECK_B} x "
+        f"{LAYER_CHECK_S} tokens then 2 decode steps: max |diff| "
+        f"{layer['max_abs_err']} ({layer['beyond_tol']} beyond "
+        f"rtol=atol={SSD_LAYER_TOL})")
+    check(layer["ok"], f"ssm: layer 0 on the card differs from the CPU: "
+          f"{layer}")
+    res["phase_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, out
+    torch.cuda.empty_cache()
+    return res
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2191,6 +2673,8 @@ def main() -> int:
     wire = wire_phase(args.seed, smi)
     act = activity_phase(args.seed, smi)
     tr = train_phase(args.seed, smi)
+    mo = moe_phase(args.seed, smi)
+    sm = ssm_phase(args.seed, smi)
     at = k["sizes"][BATCH]
     kernels = {"kernels": [{
         "name": "fid_slots",
@@ -2204,6 +2688,10 @@ def main() -> int:
                           "shard_daemons": wire["daemons"]["launches"]},
         "activity_launches": act["launches"],
         "train_launches": tr["launches"]["fid_slots"],
+        # each serving phase's own run, counted from 0 like the main path's
+        "serve_launches": sv["fid_slots_launches"],
+        "moe_launches": mo["fid_slots_launches"],
+        "ssm_launches": sm["fid_slots_launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": at["ms"], "plain_ms": at["plain_ms"],
         "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
@@ -2220,7 +2708,7 @@ def main() -> int:
         "route": "cuda",
         "source": source,
         "replaces": "src/repro/kernels/flash_attention.py:32",
-        "launches": launches,
+        "launches": sv["attention_launches"][kernel],
         "max_abs_err": fl[kernel]["max_abs_err"],
         "ms": fl[kernel]["ms"], "plain_ms": fl[kernel]["plain_ms"],
         "bound_ms": fl[kernel]["bound_ms"],
@@ -2229,6 +2717,12 @@ def main() -> int:
         "shape": "q (4, 2048, 32, 128), k/v (4, 2048, 8, 128) bf16, causal",
         "kernel": kernel, "cases": fl[kernel]["cases"],
         "train_launches": tr["launches"]["flash_attention"],
+        # each serving phase's own run, counted from 0 like phase 5's
+        "launches_by_phase": {"serve": sv["attention_launches"][kernel],
+                              "train": tr["launches"]["flash_attention"],
+                              "moe": mo["attention_launches"][kernel],
+                              "ssm": sm["attention_launches"][kernel]},
+        "moe_shape": fl["moe_shape"][kernel],
         "turns_ms": fl[kernel]["turns_ms"],
         "back_to_back_ms": fl[kernel]["back_to_back_ms"],
         "library_back_to_back_ms": fl[kernel]["library_back_to_back_ms"],
@@ -2236,13 +2730,11 @@ def main() -> int:
         "bytes": fl[kernel]["bytes"],
         "max_abs_err_float32": fl[kernel]["max_abs_err_float32"],
         "max_abs_err_bfloat16": fl[kernel]["max_abs_err_bfloat16"],
-    } for name, kernel, source, launches in (
+    } for name, kernel, source in (
         ("flash_attention_sm90", fa.SM90,
-         "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
-         sv["flash_launches"]),
+         "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"),
         ("flash_attention", fa.SIMT,
-         "src/repro_torch/kernels/csrc/flash_attention.cu",
-         sv["simt_launches"]))]}
+         "src/repro_torch/kernels/csrc/flash_attention.cu"))]}
     kernels["main_path"] = {"records": N_MDTS * RECORDS_PER_MDT,
                             "seconds": main["seconds"],
                             "records_per_s": main["records_per_s"],
@@ -2253,6 +2745,8 @@ def main() -> int:
     print(json.dumps({"wire": wire}), flush=True)
     print(json.dumps({"activity": act}), flush=True)
     print(json.dumps({"train": tr}), flush=True)
+    print(json.dumps({"moe": mo}), flush=True)
+    print(json.dumps({"ssm": sm}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

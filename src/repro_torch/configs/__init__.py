@@ -3,8 +3,9 @@
 ``get_config(arch)`` returns the full (paper-exact) config;
 ``get_smoke(arch)`` a reduced same-family config for CPU tests.  Both
 are field for field the reference's (``repro/configs``).  The port
-covers the dense family so far; an architecture of another family
-raises ``KeyError`` naming the ROADMAP.md item that brings it.
+covers the dense, MoE, SSM and hybrid families; an architecture of
+another family raises ``KeyError`` naming the ROADMAP.md item that
+brings it.
 """
 
 from __future__ import annotations
@@ -19,17 +20,17 @@ _MODULES: Dict[str, str] = {
     "gemma2-9b": "gemma2_9b",
     "granite-8b": "granite_8b",
     "qwen2.5-14b": "qwen25_14b",
+    "granite-moe-1b-a400m": "granite_moe_1b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b",
+    "jamba-v0.1-52b": "jamba_52b",
+    "mamba2-780m": "mamba2_780m",
 }
 
 #: architectures of the reference not ported yet, and where they come
 NOT_YET_PORTED: Dict[str, str] = {
-    "granite-moe-1b-a400m": "ROADMAP.md Queue 1, item 1 (MoE)",
-    "qwen3-moe-30b-a3b": "ROADMAP.md Queue 1, item 1 (MoE)",
-    "jamba-v0.1-52b": "ROADMAP.md Queue 1, item 2 (SSD and the hybrid)",
-    "mamba2-780m": "ROADMAP.md Queue 1, item 2 (SSD and the hybrid)",
-    "pixtral-12b": "ROADMAP.md Queue 1, item 3 (image embeddings and "
+    "pixtral-12b": "ROADMAP.md Queue 1, item 4 (image embeddings and "
                    "the encoder-decoder)",
-    "whisper-small": "ROADMAP.md Queue 1, item 3 (image embeddings and "
+    "whisper-small": "ROADMAP.md Queue 1, item 4 (image embeddings and "
                      "the encoder-decoder)",
 }
 

@@ -11,10 +11,13 @@ loose metadata-cache invalidation.
 The prefill's attention runs through the hand-written CUDA kernel
 (``attn_impl="flash"``); the reference's launcher prefills with
 ``"naive"``.  Decode attention is plain PyTorch, as in the reference.
+Every family the port runs serves here: MoE layers attend as dense ones
+do, and an attention-free model (mamba2) launches no kernel.
 Runs on the card unless ``--device cpu`` is given; weights are random,
 from a seeded ``torch.Generator``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 """
 

@@ -1,4 +1,5 @@
-"""Model substrate of the port: the dense decoder-only transformer."""
+"""Model substrate of the port: the decoder-only transformer (dense, MoE,
+SSM and hybrid families)."""
 
 from .config import SHAPES, ModelConfig, ShapeConfig, shape_applicable
 from .transformer import (count_params, decode_step, forward, init_cache,

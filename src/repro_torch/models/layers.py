@@ -1,5 +1,6 @@
-"""Model building blocks in PyTorch: the dense half of
-``repro/models/layers.py``.
+"""Model building blocks in PyTorch: the port of
+``repro/models/layers.py`` for the decoder families (dense, MoE, and the
+gated norm of the SSD block).
 
 Everything takes explicit parameter dicts of tensors.  Attention has
 three interchangeable implementations with the same math:
@@ -14,14 +15,16 @@ Single-device code has no counterpart of the reference's sharding
 annotations (``lshard``) or tensor-parallel head padding
 (``pad_heads_for_tp``): both are no-ops without a rules context.
 Weights keep the reference's ``x @ w`` orientation and are cast to the
-activations' type at every use, as in the reference.  MoE,
-``rms_norm_gated``, ``cross_attention_layer`` and
-``sinusoidal_positions`` come with their families (ROADMAP.md).
+activations' type at every use, as in the reference.  The MoE layer's
+``moe_variant`` only places tensors across devices, so on one device
+both variants are the same computation.  ``cross_attention_layer`` and
+``sinusoidal_positions`` come with their family (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +45,13 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * (1.0 + w.float())).to(dt)
+
+
+def rms_norm_gated(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                   eps: float = 1e-6):
+    """Mamba2 output norm: RMSNorm(x * silu(z))."""
+    x = x * F.silu(z.float()).to(x.dtype)
+    return rms_norm(x, w, eps)
 
 
 def softcap(x: torch.Tensor, cap: float):
@@ -293,3 +303,153 @@ def mlp_layer(p, x, cfg: ModelConfig):
     h = _act(x @ p["w_gate"].to(x.dtype), cfg.act) * \
         (x @ p["w_up"].to(x.dtype))
     return h @ p["w_down"].to(x.dtype)
+
+
+# ----------------------------------------------------------------------- MoE
+#: the expert leaves of ``moe_params_layout`` (stacked over experts; the
+#: router is not one of them)
+EXPERT_KEYS = ("w_gate", "w_up", "w_down")
+
+
+def moe_params_layout(cfg: ModelConfig) -> Layout:
+    D, E, Fd = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    return {
+        "w_router": ((D, E), D ** -0.5),
+        "w_gate": ((E, D, Fd), D ** -0.5),
+        "w_up": ((E, D, Fd), D ** -0.5),
+        "w_down": ((E, Fd, D), Fd ** -0.5),
+    }
+
+
+def moe_capacity(cfg: ModelConfig, S: int) -> int:
+    """Slots per expert and batch row for ``S`` tokens, the reference's
+    expression evaluated in Python floats."""
+    E, K = cfg.n_experts, cfg.top_k
+    return max(1, min(S, int(math.ceil(S * K / E * cfg.capacity_factor))))
+
+
+def _dispatch_positions(expert_ids: torch.Tensor, n_experts: int):
+    """expert_ids: (..., T) int — position of each entry within its
+    expert's capacity buffer (its rank among the earlier entries of the
+    same row routed to that expert), by a stable sort (no T x E
+    one-hot).  Rows of a batched input are independent, as under the
+    reference's ``vmap``."""
+    T = expert_ids.shape[-1]
+    e = expert_ids.long()
+    order = torch.argsort(e, dim=-1, stable=True)
+    sorted_e = torch.gather(e, -1, order).contiguous()
+    experts = torch.arange(n_experts, device=e.device)
+    starts = torch.searchsorted(
+        sorted_e, experts.expand(*e.shape[:-1], n_experts).contiguous(),
+        side="left")
+    pos_sorted = (torch.arange(T, device=e.device)
+                  - torch.gather(starts, -1, sorted_e))
+    return torch.zeros_like(e).scatter_(-1, order, pos_sorted)
+
+
+class MoeRoute(NamedTuple):
+    """What the router decided for x (B, S, D), K = top_k choices a
+    token; the (token, k) slots are flattened token-major to S*K."""
+    probs: torch.Tensor     # (B, S, E) fp32 softmax of the router
+    top_p: torch.Tensor     # (B, S, K) fp32, renormalised over the K
+    top_e: torch.Tensor     # (B, S, K) int64 experts, best first
+    pos: torch.Tensor       # (B, S*K) int64 slot in the expert's buffer
+    keep: torch.Tensor      # (B, S*K) bool: within capacity (not dropped)
+    aux: torch.Tensor       # () fp32 Switch load-balance loss
+
+
+def route_slots(top_e: torch.Tensor, top_p: torch.Tensor, n_experts: int,
+                capacity: int):
+    """Each (token, k) slot's position in its expert's buffer and
+    whether it is kept: ``(pos, keep)``, both (B, S*K)."""
+    B = top_e.shape[0]
+    pos = _dispatch_positions(top_e.reshape(B, -1), n_experts)
+    keep = (pos < capacity) & (top_p.reshape(B, -1) > 0)
+    return pos, keep
+
+
+def moe_route(p, x, cfg: ModelConfig, capacity: int) -> MoeRoute:
+    """Softmax router in fp32, top-k renormalised, the Switch aux loss,
+    and each slot's place in a capacity of ``capacity`` per expert.
+
+    Top-k is the first K of a stable descending sort: on equal
+    probabilities the lower expert index comes first, as ``lax.top_k``
+    gives it (``torch.topk`` breaks such ties otherwise, and bf16 router
+    logits tie often)."""
+    E, K = cfg.n_experts, cfg.top_k
+    logits = x @ p["w_router"].to(x.dtype)
+    probs = torch.softmax(logits.float(), dim=-1)
+    sorted_p, sorted_e = torch.sort(probs, dim=-1, descending=True,
+                                    stable=True)
+    top_p, top_e = sorted_p[..., :K], sorted_e[..., :K]
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    me = probs.mean(dim=(0, 1))
+    # counts by scatter-add, not ``bincount``, which waits on the device
+    # for its input's max; integer counts are exact in fp32 in any order
+    ce = torch.zeros(E, device=x.device).scatter_add_(
+        0, top_e.reshape(-1), torch.ones(top_e.numel(), device=x.device)) \
+        / max(top_e.numel(), 1)
+    aux = cfg.router_aux_coef * E * torch.sum(me * ce)
+    pos, keep = route_slots(top_e, top_p, E, capacity)
+    return MoeRoute(probs, top_p, top_e, pos, keep, aux)
+
+
+def moe_dispatch(x, route: MoeRoute, n_experts: int, capacity: int):
+    """The capacity buffer, held expert-major as (E, B, C, D) so that the
+    expert products batch over E without a copy (``.transpose(0, 1)`` is
+    the reference's (B, E, C, D)): each kept slot's token at its
+    position, zeros elsewhere.  Kept slots never share a position, so
+    one indexed write gives the reference's scatter-add (whose dropped
+    slots add exact zeros); dropped slots write to a spare expert row
+    past the last, which is cut off, so nothing waits on the device to
+    count the kept slots."""
+    B, S, D = x.shape
+    K = route.top_e.shape[-1]
+    keep = route.keep.reshape(B, S, K)
+    buf = x.new_zeros(n_experts + 1, B, capacity, D)
+    e = torch.where(keep, route.top_e, n_experts)
+    pos = torch.where(keep, route.pos.reshape(B, S, K), 0)
+    b = torch.arange(B, device=x.device)[:, None, None]
+    buf[e, b, pos] = x[:, :, None, :]
+    return buf[:n_experts]
+
+
+def moe_experts(p, buf, cfg: ModelConfig):
+    """The expert FFN over the (E, B, C, D) buffer: three products
+    batched over E, weights cast to the activations' type."""
+    E, B, C, D = buf.shape
+    dt = buf.dtype
+    flat = buf.reshape(E, B * C, D)
+    h = _act(torch.bmm(flat, p["w_gate"].to(dt)), cfg.act)
+    h = h * torch.bmm(flat, p["w_up"].to(dt))
+    return torch.bmm(h, p["w_down"].to(dt)).reshape(E, B, C, D)
+
+
+def moe_combine(out_buf, route: MoeRoute, S: int):
+    """Each token's output: its K slots' expert outputs weighted by the
+    router (dropped slots weigh 0), added one k after another in the
+    activations' type, the order of the reference's scatter-add."""
+    E, B, C, D = out_buf.shape
+    K = route.top_e.shape[-1]
+    dt = out_buf.dtype
+    flat_e = route.top_e.reshape(B, S * K)
+    bidx = torch.arange(B, device=out_buf.device)[:, None]
+    gathered = out_buf[flat_e, bidx, route.pos.clamp(0, C - 1)]
+    weight = route.keep.to(dt) * route.top_p.reshape(B, S * K).to(dt)
+    g = (gathered * weight[..., None]).reshape(B, S, K, D)
+    out = torch.zeros(B, S, D, dtype=dt, device=out_buf.device)
+    for k in range(K):
+        out = out + g[:, :, k]
+    return out
+
+
+def moe_layer(p, x, cfg: ModelConfig, capacity: Optional[int] = None):
+    """Scatter dispatch into per-expert capacity buffers (groups = batch
+    rows) -> expert FFN -> weighted combine.  x: (B,S,D).
+    Returns (out, aux_loss)."""
+    C = capacity or moe_capacity(cfg, x.shape[1])
+    route = moe_route(p, x, cfg, C)
+    buf = moe_dispatch(x, route, cfg.n_experts, C)
+    out_buf = moe_experts(p, buf, cfg)
+    del buf
+    return moe_combine(out_buf, route, x.shape[1]), route.aux

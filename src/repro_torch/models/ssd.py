@@ -1,0 +1,198 @@
+"""Mamba2 SSD (state-space duality) block in PyTorch: the port of
+``repro/models/ssd.py``.
+
+The sequence is split into chunks of Q tokens.  Within a chunk the
+computation is a masked, decay-weighted attention-like product; across
+chunks a first-order recurrence carries the running state (B, H, P, N)
+in fp32, here a Python loop over chunks where the reference scans.
+Jamba's Mamba-1 layers are instantiated with the same block (d_state
+from the config), as in the reference.
+
+Shapes: D = d_model, I = d_inner, H = ssm heads, P = head dim,
+G = groups, N = d_state, K = conv kernel width, Q = chunk.
+
+Prefill and decode round as the reference's do, which is not alike: the
+prefill's convolution is K shifted multiply-adds and its skip term is
+taken in the activations' type; decode's convolution is one product over
+the window and its skip term is fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .layers import Layout, rms_norm_gated
+
+
+def ssd_params_layout(cfg: ModelConfig) -> Layout:
+    D, I, H = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+    G, N, K = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_conv
+    d_in = 2 * I + 2 * G * N + H
+    conv_dim = cfg.conv_dim
+    return {
+        "w_in": ((D, d_in), D ** -0.5),
+        "conv_w": ((conv_dim, K), conv_dim ** -0.5),
+        "conv_b": ((conv_dim,), 0.0),
+        "dt_bias": ((H,), 0.0),
+        "A_log": ((H,), 0.0),
+        "skip_D": ((H,), 0.0),
+        "w_norm": ((I,), 0.0),
+        "w_out": ((I, D), I ** -0.5),
+    }
+
+
+def _split_in(h, cfg: ModelConfig):
+    I, G, N, H = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    return torch.split(h, [I, I, G * N, G * N, H], dim=-1)
+
+
+def _causal_conv(x, w, b, cache: Optional[torch.Tensor] = None):
+    """Depthwise causal conv.  x: (B,S,C); w: (C,K); cache: (B,K-1,C)
+    holds the trailing inputs of the previous segment.  Returns
+    (y (B,S,C), new_cache (B,K-1,C))."""
+    K = w.shape[1]
+    S = x.shape[1]
+    if cache is None:
+        cache = x.new_zeros(x.shape[0], K - 1, x.shape[2])
+    xx = torch.cat([cache, x], dim=1)                       # (B, S+K-1, C)
+    # K is tiny (4): K shifted multiply-adds, in the reference's order
+    y = 0
+    for i in range(K):
+        y = y + xx[:, i:i + S, :] * w[:, i][None, None, :]
+    y = y + b[None, None, :]
+    # a copy, so that a kept cache does not hold all of ``xx``
+    new_cache = xx[:, -(K - 1):, :].clone() if K > 1 else cache
+    return y, new_cache
+
+
+def ssd_scan(xh, dt, A, Bm, Cm, chunk: int,
+             init_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD.  xh: (B,S,H,P); dt: (B,S,H); A: (H,) (negative);
+    Bm, Cm: (B,S,G,N).  Returns (y (B,S,H,P), final_state (B,H,P,N)).
+
+    The intra-chunk decay exp(cum_q - cum_k) is taken only where k <= q:
+    the masked half is set to -inf before the exp, where the reference
+    takes the exp everywhere and selects after it (the same values; its
+    masked half can overflow to inf)."""
+    B, S, H, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    hpg = H // G
+    Q = min(chunk, S)
+    S_in = S
+    pad = (-S) % Q
+    if pad:  # padded tail has dt=0 => zero contribution to the state
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+        S = S + pad
+    nc = S // Q
+
+    a = dt * A[None, None, :]                               # (B,S,H) <= 0
+    causal = torch.ones(Q, Q, dtype=torch.bool,
+                        device=xh.device).tril()[None, :, :, None]
+    state = init_state if init_state is not None else \
+        torch.zeros(B, H, P, N, dtype=torch.float32, device=xh.device)
+    ys = []
+    for c in range(nc):
+        sl = slice(c * Q, (c + 1) * Q)
+        a_c, x_c, dt_c = a[:, sl], xh[:, sl].float(), dt[:, sl]
+        B_c, C_c = Bm[:, sl].float(), Cm[:, sl].float()
+        cum = torch.cumsum(a_c, dim=1)                      # (B,Q,H)
+        # intra-chunk (attention-like, per head through its group)
+        CB = torch.einsum("bqgn,bkgn->bgqk", C_c, B_c)      # (B,G,Q,Q)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]      # (B,Q,K,H)
+        Ldec = torch.exp(torch.where(causal, diff, float("-inf")))
+        CBh = torch.repeat_interleave(CB, hpg, dim=1)       # (B,H,Q,K)
+        scores = CBh.permute(0, 2, 3, 1) * Ldec * dt_c[:, None, :, :]
+        y_diag = torch.einsum("bqkh,bkhp->bqhp", scores, x_c)
+        # inter-chunk: contribution of the carried state (group-aware)
+        state_g = state.reshape(B, G, hpg, P, N)
+        y_off = torch.einsum("bqgn,bghpn->bqghp", C_c,
+                             state_g).reshape(B, Q, H, P)
+        y_off = y_off * torch.exp(cum)[..., None]
+        # new chunk state
+        decay_tail = torch.exp(cum[:, -1:, :] - cum)        # (B,Q,H)
+        sB = torch.repeat_interleave(Bm[:, sl], hpg, dim=2)  # (B,Q,H,N)
+        contrib = torch.einsum("bqhn,bqhp->bhpn",
+                               (sB * (dt_c * decay_tail)[..., None]).float(),
+                               x_c)
+        state = state * torch.exp(a_c.sum(dim=1))[..., None, None] + contrib
+        ys.append((y_diag + y_off).to(xh.dtype))
+    y = torch.cat(ys, dim=1)
+    return y[:, :S_in], state
+
+
+def ssd_layer(p, x, cfg: ModelConfig, cache: Optional[dict] = None,
+              return_cache: bool = False):
+    """Full-sequence SSD block: (B,S,D) -> (B,S,D).
+
+    With ``return_cache`` also returns {"conv": (B,K-1,conv_dim),
+    "state": (B,H,P,N)} for subsequent decode."""
+    B, S, D = x.shape
+    H, P = cfg.ssm_heads, cfg.ssm_head_dim
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    h = x @ p["w_in"].to(x.dtype)
+    z, xc, Bm, Cm, dt = _split_in(h, cfg)
+    conv_in = torch.cat([xc, Bm, Cm], dim=-1)
+    conv_out, conv_tail = _causal_conv(
+        conv_in, p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype),
+        None if cache is None else cache.get("conv"))
+    conv_out = F.silu(conv_out)
+    xc = conv_out[..., :cfg.d_inner]
+    Bm = conv_out[..., cfg.d_inner:cfg.d_inner + G * N].reshape(B, S, G, N)
+    Cm = conv_out[..., cfg.d_inner + G * N:].reshape(B, S, G, N)
+    dt = F.softplus(dt.float() + p["dt_bias"].float()[None, None, :])
+    A = -torch.exp(p["A_log"].float())
+    xh = xc.reshape(B, S, H, P)
+    y, state = ssd_scan(xh, dt, A, Bm, Cm, cfg.ssm_chunk,
+                        None if cache is None else cache.get("state"))
+    y = y + xh.float().to(y.dtype) * \
+        p["skip_D"].to(y.dtype)[None, None, :, None]
+    y = y.reshape(B, S, cfg.d_inner)
+    y = rms_norm_gated(y, z, p["w_norm"], cfg.norm_eps)
+    out = y @ p["w_out"].to(x.dtype)
+    if return_cache:
+        return out, {"conv": conv_tail, "state": state}
+    return out
+
+
+def ssd_decode(p, x, cache: dict, cfg: ModelConfig):
+    """Single-token decode: x (B,1,D); cache {"conv": (B,K-1,conv_dim),
+    "state": (B,H,P,N)}.  Returns (out (B,1,D), cache), the cache's
+    tensors written in place."""
+    B = x.shape[0]
+    H, P = cfg.ssm_heads, cfg.ssm_head_dim
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    hpg = H // G
+    h = x @ p["w_in"].to(x.dtype)                           # (B,1,d_in)
+    z, xc, Bm, Cm, dt = _split_in(h, cfg)
+    conv_in = torch.cat([xc, Bm, Cm], dim=-1)               # (B,1,conv_dim)
+    window = torch.cat([cache["conv"].to(x.dtype), conv_in], dim=1)
+    w = p["conv_w"].to(x.dtype)                             # (c,K)
+    conv_out = torch.einsum("bkc,ck->bc", window, w) + p["conv_b"].to(x.dtype)
+    conv_out = F.silu(conv_out)[:, None, :]                 # (B,1,c)
+    xc = conv_out[..., :cfg.d_inner]
+    Bm = conv_out[..., cfg.d_inner:cfg.d_inner + G * N].reshape(B, G, N)
+    Cm = conv_out[..., cfg.d_inner + G * N:].reshape(B, G, N)
+    dt = F.softplus(dt.float() + p["dt_bias"].float()[None, None, :])[:, 0]
+    A = -torch.exp(p["A_log"].float())
+    xh = xc.reshape(B, H, P)
+    decay = torch.exp(dt * A[None, :])                      # (B,H)
+    Bh = torch.repeat_interleave(Bm, hpg, dim=1)            # (B,H,N)
+    state = cache["state"] * decay[..., None, None] + \
+        torch.einsum("bh,bhn,bhp->bhpn", dt, Bh.float(), xh.float())
+    Ch = torch.repeat_interleave(Cm, hpg, dim=1)
+    y = torch.einsum("bhn,bhpn->bhp", Ch.float(), state)
+    y = y + xh.float() * p["skip_D"].float()[None, :, None]
+    y = y.reshape(B, 1, cfg.d_inner).to(x.dtype)
+    y = rms_norm_gated(y, z, p["w_norm"], cfg.norm_eps)
+    out = y @ p["w_out"].to(x.dtype)
+    cache["conv"].copy_(window[:, 1:, :])
+    cache["state"].copy_(state)
+    return out, cache

@@ -11,8 +11,10 @@ every case of that file it takes, at the serving shape and at the extra
 bf16 cases, give 0 on fully masked rows, and refuse what it does not
 take, inputs that need a gradient included.  The activity consumers of
 ``chip_smoke.py``'s phase 7 over a cluster routing on the card must end
-in the state they reach over one routing on the CPU, and a training step
-on the card must agree with the same step on the CPU (phase 8).
+in the state they reach over one routing on the CPU, a training step
+on the card must agree with the same step on the CPU (phase 8), and one
+MoE layer and one SSD layer in float32 must agree between card and CPU
+(phases 9 and 10: routing equal, outputs within 1e-5 and 1e-4).
 
 Imports only the port (the card's machine has no JAX and no msgpack),
 and skips where there is no CUDA card.  On a card:
@@ -283,3 +285,41 @@ def test_flash_kernel_refuses_inputs_that_need_grad(card):
         q.requires_grad_(True)
         assert fa.flash_attention_bshd(q, k, v).shape == q.shape
     assert fa.launches == before + 1
+
+
+def load_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "qwen3-moe-30b-a3b"])
+def test_moe_layer_on_the_card_like_on_the_cpu(card, arch):
+    """chip_smoke.py's phase 9 layer check at the full config's width:
+    one MoE layer in float32, the same weights and input on both
+    devices; top_e, pos and keep equal, the output within 1e-5."""
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as M
+    smoke = load_smoke()
+    cfg = C.get_config(arch).replace(n_layers=1)
+    params = M.init_params(cfg, seed=0, device="cpu")
+    out = smoke.moe_card_vs_cpu(cfg, params["layers"][0]["moe"], 2, 64, 0)
+    assert out["ok"], out
+
+
+def test_ssd_layer_on_the_card_like_on_the_cpu(card):
+    """chip_smoke.py's phase 10 layer check at mamba2-780m's width: one
+    SSD layer in float32 over 300 tokens (two chunks, the second cut
+    short), its cache and two decode steps within 1e-4."""
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as M
+    smoke = load_smoke()
+    cfg = C.get_config("mamba2-780m").replace(n_layers=1)
+    params = M.init_params(cfg, seed=0, device="cpu")
+    out = smoke.ssd_card_vs_cpu(cfg, params["layers"][0]["ssm"], 2, 300, 0)
+    assert out["ok"], out

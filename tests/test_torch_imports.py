@@ -33,7 +33,12 @@ def test_every_port_module_is_listed():
                  "repro_torch.kernels.flash_attention",
                  "repro_torch.kernels.ops", "repro_torch.models.config",
                  "repro_torch.models.layers",
-                 "repro_torch.models.transformer", "repro_torch.configs",
+                 "repro_torch.models.transformer",
+                 "repro_torch.models.ssd", "repro_torch.configs",
+                 "repro_torch.configs.granite_moe_1b",
+                 "repro_torch.configs.qwen3_moe_30b",
+                 "repro_torch.configs.mamba2_780m",
+                 "repro_torch.configs.jamba_52b",
                  "repro_torch.configs.granite_8b",
                  "repro_torch.configs.gemma2_9b",
                  "repro_torch.runtime.steps", "repro_torch.track.tracker",

@@ -86,16 +86,20 @@ def test_granite_8b_full_width_count():
 
 
 def test_unported_archs_name_their_roadmap_item():
-    assert sorted(PC.list_archs()) == sorted(DENSE)
-    for arch in set(RC.list_archs()) - set(DENSE):
-        with pytest.raises(KeyError, match="ROADMAP.md Queue 1, item"):
+    ported = DENSE + ["granite-moe-1b-a400m", "qwen3-moe-30b-a3b",
+                      "mamba2-780m", "jamba-v0.1-52b"]
+    assert sorted(PC.list_archs()) == sorted(ported)
+    assert set(RC.list_archs()) - set(ported) == {"pixtral-12b",
+                                                  "whisper-small"}
+    for arch in set(RC.list_archs()) - set(ported):
+        with pytest.raises(KeyError, match="ROADMAP.md Queue 1, item 4"):
             PC.get_config(arch)
-    moe = PC.get_smoke("granite-8b").replace(family="moe", n_experts=4,
-                                             top_k=2, moe_d_ff=32)
-    with pytest.raises(NotImplementedError, match="item 1"):
-        PT.param_layout(moe)
-    with pytest.raises(NotImplementedError):
-        PT.forward({}, moe, torch.zeros(1, 4, dtype=torch.long))
+    vlm = PC.get_smoke("granite-8b").replace(family="vlm",
+                                             n_image_patches=4)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        PT.param_layout(vlm)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        PT.forward({}, vlm, torch.zeros(1, 4, dtype=torch.long))
 
 
 def test_init_params_seeded_on_the_host():

@@ -20,7 +20,9 @@ def run_ref(monkeypatch, capsys, argv):
     return json.loads(capsys.readouterr().out)
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["granite-8b", "gemma2-9b",
+                                  "qwen3-moe-30b-a3b", "mamba2-780m",
+                                  "jamba-v0.1-52b"])
 def test_serve_matches_reference(monkeypatch, capsys, arch):
     argv = ["--arch", arch, "--smoke", "--batch", "3", "--prompt-len", "10",
             "--gen-len", "5", "--replicas", "3"]
@@ -58,8 +60,9 @@ def test_make_tokens_defaults_to_the_card(monkeypatch):
 
 
 def test_serve_steps_go_through_the_kernel_wrapper(monkeypatch):
-    """The launcher's prefill takes the ``flash`` path: every layer calls
-    the kernel's wrapper once (on the host it runs the plain version)."""
+    """The launcher's prefill takes the ``flash`` path: every attention
+    layer calls the kernel's wrapper once (on the host it runs the plain
+    version)."""
     from repro_torch import configs as C
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import transformer as T
@@ -83,3 +86,27 @@ def test_serve_steps_go_through_the_kernel_wrapper(monkeypatch):
     assert out["decode_steps"] == 2
     assert out["evicted_per_replica"] == [1, 1]     # object 2 of 0..2
     assert out["remaining_pages"] == [2, 2]
+
+
+@pytest.mark.parametrize("arch,n_attn", [("qwen3-moe-30b-a3b", 2),
+                                         ("mamba2-780m", 0),
+                                         ("jamba-v0.1-52b", 1)])
+def test_serve_calls_the_kernel_once_per_attention_layer(monkeypatch, arch,
+                                                         n_attn):
+    """MoE layers attend like dense ones; an SSD layer calls no attention
+    kernel, so mamba2 serves without one and jamba's prefill calls it
+    once, at its attention layer (index 4 of 8)."""
+    from repro_torch import configs as C
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
+    calls = []
+    real = fa.flash_attention_bshd
+    monkeypatch.setattr("repro_torch.kernels.ops.flash_attention_bshd",
+                        lambda *a, **kw: calls.append(kw) or real(*a, **kw))
+    cfg = C.get_smoke(arch)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    tokens = port_serve.make_tokens(cfg, 3, 6, device="cpu")
+    out = port_serve.serve(cfg, params, tokens, gen_len=3, replicas=2)
+    assert len(calls) == n_attn
+    assert bool(torch.isfinite(out["prefill_logits"]).all())
+    assert out["evicted_per_replica"] == [1, 1]
