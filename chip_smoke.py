@@ -18,11 +18,14 @@ Phases, in order; any failed check exits nonzero and prints no result:
             tests/test_kernels.py it takes, at the serving path's shape
             and at extra bf16 cases (a 2049-token prefill, gemma2's
             head_dim with window and softcap, rows with nothing visible,
-            phase 9's head_dim 64 with GQA 32:4), within 2e-5 (float32) /
-            2e-2 (bfloat16); both timed at phase 5's and phase 9's
-            shapes, in turns with
-            ``scaled_dot_product_attention`` on the same tensors as a
-            yardstick (the port never calls it);
+            phase 9's head_dim 64 with GQA 32:4, phase 11's head_dim 160
+            (padded to 192 in the wgmma kernel), phase 12's non-causal
+            encoder over 1500 frames and its decoder prefill, and small
+            non-causal cases with Sq != Sk and Sk not a multiple of 64),
+            within 2e-5 (float32) / 2e-2 (bfloat16); both timed at the
+            shapes of phases 5, 9, 11 and 12 (encoder and decoder), in turns
+            with ``scaled_dot_product_attention`` on the same tensors as
+            a yardstick (the port never calls it);
 4. main     the sharded changelog pipeline end to end: 4 MDT journals x
             262,144 records routed by ``LcapCluster(device="cuda")`` to
             4 shards, two consumer groups and an ephemeral reader
@@ -35,7 +38,9 @@ Phases, in order; any failed check exits nonzero and prints no result:
             serving launcher: 4 prompts of 2048 tokens prefilled through
             the wgmma attention kernel (one launch per layer, and none of
             the CUDA-core kernel, by the wrapper's counters and by the
-            profiler's kernel names; no ``fid_slots`` launch), 16 tokens
+            kernels' own counts on the card; the profiler's kernel names,
+            which can lose a record, at most as many; no ``fid_slots``
+            launch), 16 tokens
             generated, the LCAP invalidation loop over 2 replicas; then
             flash-vs-naive and prefill/decode consistency of the logits;
 6. wire     the main path over the wire, on 4 MDT journals x 65,536
@@ -81,8 +86,8 @@ Phases, in order; any failed check exits nonzero and prints no result:
 9. moe      qwen3-moe-30b-a3b at full width and depth (48 layers, 128
             experts top-8, 30.08 B parameters in bf16, seeded random
             weights) through phase 5's serving path: 48 wgmma launches
-            per prefill and none of the CUDA-core kernel (counters and
-            profiler names), phase 5's invalidation counts, the share of
+            per prefill and none of the CUDA-core kernel (counted as in
+            phase 5), phase 5's invalidation counts, the share of
             (token, k) slots the prefill drops at the default capacity
             (decode drops none); flash-vs-naive and decode-vs-prefill
             logits (the latter at a capacity where nothing drops) within
@@ -96,12 +101,31 @@ Phases, in order; any failed check exits nonzero and prints no result:
             and no ``fid_slots`` launch;
             decode at P against a P + 1 token prefill within 0.12; one SSD
             layer in float32 on the card against the CPU (output, cache
-            and two decode steps within 1e-4).
+            and two decode steps within 1e-4);
+11. vlm     pixtral-12b at full width and depth (40 layers, 12.77 B
+            parameters in bf16, seeded random weights) through phase 5's
+            serving path, the first 256 positions of each prompt being
+            float32 normal image-patch embeddings: 40 wgmma launches per
+            prefill at head_dim 160 and none of the CUDA-core kernel
+            (counted as in phase 5), no ``fid_slots`` launch;
+            flash-vs-naive and decode-vs-prefill logits within 0.12, or
+            no farther from the float32 logits than the other path (its
+            mean |diff| plus 5 %);
+12. audio   whisper-small at full width and depth (12 encoder and 12
+            decoder layers) serving 4 clips of 1500 float32 normal frame
+            embeddings with a 224-token decoder prompt: 24 wgmma launches
+            per prefill, 12 of them without a causal mask (by the
+            wrapper's arguments), none of the CUDA-core kernel, no
+            ``fid_slots`` launch; flash-vs-naive and decode-vs-prefill
+            logits within 0.12; one encoder layer and one decoder layer
+            with its cross attention in float32 on the card against the
+            CPU, within 1e-4.
 
 Then a JSON line of serve numbers, one of wire numbers, one of activity
 numbers, one of training numbers, one of MoE serving numbers, one of SSD
-serving numbers, one of kernels, the card's ``nvidia-smi`` line, and the
-result line ``{"ok": true, "device": {...}}`` last.  Imports nothing of
+serving numbers, one of VLM serving numbers, one of audio serving
+numbers, one of kernels, the card's ``nvidia-smi`` line, and the result
+line ``{"ok": true, "device": {...}}`` last.  Imports nothing of
 JAX, of the reference package or of msgpack.
 """
 
@@ -193,6 +217,17 @@ FLASH_EXTRA = [((4, 2049, 2049, 32, 8, 128), "bfloat16", True, 0, 0.0),
                ((1, 96, 96, 4, 2, 224), "bfloat16", True, 16, 50.0),
                ((1, 64, 16, 2, 1, 32), "bfloat16", True, 4, 0.0),
                FLASH_MOE]
+#: the attention kernel's shapes on phases 11 and 12: pixtral-12b's
+#: prefill (head_dim 160, GQA 32:8, causal), whisper-small's encoder (no
+#: causal mask, 1500 frames: 23 whole kv tiles of 64 and one of 28) and
+#: its decoder's 224-token prefill; and small non-causal cases with
+#: Sq != Sk and Sk not a multiple of 64
+FLASH_VLM = ((4, 2048, 2048, 32, 8, 160), "bfloat16", True, 0, 0.0)
+FLASH_ENC = ((4, 1500, 1500, 12, 12, 64), "bfloat16", False, 0, 0.0)
+FLASH_DEC = ((4, 224, 224, 12, 12, 64), "bfloat16", True, 0, 0.0)
+FLASH_ENCDEC = [FLASH_VLM, FLASH_ENC, FLASH_DEC,
+                ((2, 100, 1500, 4, 4, 64), "bfloat16", False, 0, 0.0),
+                ((1, 64, 130, 4, 2, 160), "bfloat16", False, 0, 0.0)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: the serving path: granite-8b, B prompts of P tokens, G generated
 SERVE_ARCH = "granite-8b"
@@ -231,6 +266,19 @@ SSM_ARCH = "mamba2-780m"
 LAYER_CHECK_B, LAYER_CHECK_S = 2, 256
 MOE_LAYER_TOL = 1e-5
 SSD_LAYER_TOL = 1e-4
+#: phases 11 and 12: the VLM on phase 5's traffic, and the
+#: encoder-decoder: SERVE_B clips of n_frames frames with an AUDIO_P-token
+#: decoder prompt (whisper's decoder sees 448 positions, the first half
+#: of them the previous window's text), SERVE_G generated; one encoder
+#: and one decoder layer of it on the card against the CPU in float32
+VLM_ARCH = "pixtral-12b"
+AUDIO_ARCH = "whisper-small"
+AUDIO_P = 224
+ENCDEC_LAYER_TOL = 1e-4
+#: phases 11 and 12: where two bf16 paths' logits differ by more than
+#: LOGIT_ATOL, how much farther from the float32 computation than the
+#: other path the path under test may be, in mean |diff| (relative)
+NOISE_MARGIN = 0.05
 DEVICE = torch.device("cuda")
 
 
@@ -1634,54 +1682,62 @@ def flash_phase(seed: int) -> dict:
     from repro_torch.kernels import flash_attention as fa
     dev = DEVICE
     out = {}
-    cases = FLASH_CASES + [FLASH_MAIN] + FLASH_EXTRA
+    cases = FLASH_CASES + [FLASH_MAIN] + FLASH_EXTRA + FLASH_ENCDEC
+    #: the shapes timed beside the serving path's, by their key in ``out``
+    timed = {"moe_shape": FLASH_MOE, "vlm_shape": FLASH_VLM,
+             "enc_shape": FLASH_ENC, "dec_shape": FLASH_DEC}
+    errs = {}
     for kernel in (fa.SM90, fa.SIMT):
         worst = {"float32": 0.0, "bfloat16": 0.0}
         taken = [c for c in cases if takes(kernel, c)]
         for i, case in enumerate(taken):
             err = flash_check(kernel, case, seed + i, dev)
             worst[case[1]] = max(worst[case[1]], err)
-            if case == FLASH_MAIN:
-                main_err = err
-            if case == FLASH_MOE:
-                moe_err = err
+            errs[kernel, case] = err
+        main_err = errs[kernel, FLASH_MAIN]
         out[kernel] = {"cases": len(taken), "max_abs_err": main_err,
-                       "max_abs_err_moe_shape": moe_err,
                        "max_abs_err_float32": worst["float32"],
                        "max_abs_err_bfloat16": worst["bfloat16"]}
         log(f"kernels: {kernel} within tolerance of the plain version at "
             f"{len(taken)} cases (max |err| float32 {worst['float32']:.3g} "
             f"<= 2e-5 rtol+atol, bfloat16 {worst['bfloat16']:.3g} <= 2e-2; "
-            f"serving shape {main_err:.3g})")
-    for kernel, timed in time_flash(FLASH_MAIN, seed, dev).items():
-        out[kernel].update(timed)
-    out["moe_shape"] = time_flash(FLASH_MOE, seed, dev)
-    for kernel in (fa.SM90, fa.SIMT):
-        out["moe_shape"][kernel]["max_abs_err"] = \
-            out[kernel]["max_abs_err_moe_shape"]
+            f"serving shape {main_err:.3g}; "
+            + "; ".join(f"{name} {errs[kernel, case]:.3g}"
+                        for name, case in timed.items()) + ")")
+        log(f"kernels: {kernel} at the non-causal and head_dim 160 cases: "
+            + ", ".join(f"{list(c[0])} causal={c[2]} {errs[kernel, c]:.3g}"
+                        for c in FLASH_ENCDEC))
+    for kernel, t in time_flash(FLASH_MAIN, seed, dev).items():
+        out[kernel].update(t)
+    for name, case in timed.items():
+        out[name] = time_flash(case, seed, dev)
+        for kernel in (fa.SM90, fa.SIMT):
+            out[name][kernel]["max_abs_err"] = errs[kernel, case]
     return out
 
 
 def time_flash(case, seed: int, dev) -> dict:
-    """Both attention kernels at one bf16 causal shape, timed in turns
-    with ``scaled_dot_product_attention`` on the same tensors (the
-    yardstick; the port never calls it), with the plain version's time
-    and the bound; one dict per kernel."""
+    """Both attention kernels at one bf16 shape (causal or not, as the
+    case says), timed in turns with ``scaled_dot_product_attention`` on
+    the same tensors (the yardstick; the port never calls it), with the
+    plain version's time and the bound; one dict per kernel."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import flash_attention as fa
-    (B, S, _, H, KV, D), *_ = case
+    (B, S, _, H, KV, D), _, causal, *_ = case
     q, k, v = flash_qkv(case[0], "bfloat16", seed, dev)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
     def library():
         return torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
 
     lib_err = float((library().transpose(1, 2).float()
-                     - fa.flash_attention_reference(q, k, v, causal=True)
+                     - fa.flash_attention_reference(q, k, v, causal=causal)
                      .float()).abs().max())
-    fns = {fa.SM90: lambda: fa.launch_kernel(fa.SM90, q, k, v, causal=True),
-           fa.SIMT: lambda: fa.launch_kernel(fa.SIMT, q, k, v, causal=True),
+    fns = {fa.SM90: lambda: fa.launch_kernel(fa.SM90, q, k, v,
+                                             causal=causal),
+           fa.SIMT: lambda: fa.launch_kernel(fa.SIMT, q, k, v,
+                                             causal=causal),
            "library": library}
     # in turns: wgmma, CUDA cores, library, library, CUDA cores, wgmma;
     # each launch between its own two events, and 20 launches back to back
@@ -1705,7 +1761,7 @@ def time_flash(case, seed: int, dev) -> dict:
             torch.cuda.synchronize()
         device_ms[kernel] = device_busy_ms(prof, kernel) / 10
     plain_ms = cuda_median_ms(
-        lambda: fa.flash_attention_reference(q, k, v, causal=True), runs=5)
+        lambda: fa.flash_attention_reference(q, k, v, causal=causal), runs=5)
     (bound_ms, bound_by), flops, nbytes = flash_bound_ms(case)
     out = {}
     for kernel in (fa.SM90, fa.SIMT):
@@ -1716,16 +1772,17 @@ def time_flash(case, seed: int, dev) -> dict:
             "device_ms": device_ms[kernel], "plain_ms": plain_ms,
             "library_ms": ms["library"], "bound_ms": bound_ms,
             "bound_by": bound_by, "flops": flops, "bytes": nbytes,
-            "shape": list(case[0])}
+            "shape": list(case[0]), "causal": causal}
         log(f"kernels: {kernel} bf16 B={B} S={S} H={H} KV={KV} D={D} "
-            f"causal: {ms[kernel]:.6f} ms (median of 40 launches by CUDA "
-            f"events; turn medians {turns[kernel][0]:.6f} / "
+            f"causal={causal}: {ms[kernel]:.6f} ms (median of 40 launches by "
+            f"CUDA events; turn medians {turns[kernel][0]:.6f} / "
             f"{turns[kernel][1]:.6f} ms; back to back {b2b[kernel][0]:.6f} / "
             f"{b2b[kernel][1]:.6f} ms; {device_ms[kernel]:.6f} ms device "
             f"time by torch.profiler), {bound_ms / ms[kernel]:.3f} of its "
             f"bound, {ms['library'] / ms[kernel]:.3f} x "
             f"scaled_dot_product_attention's speed")
-    log(f"kernels: attention yardsticks at B={B} S={S} H={H} KV={KV} D={D}: "
+    log(f"kernels: attention yardsticks at B={B} S={S} H={H} KV={KV} D={D} "
+        f"causal={causal}: "
         f"plain version {plain_ms:.6f} ms, scaled_dot_product_attention "
         f"{ms['library']:.6f} ms (turn medians {turns['library'][0]:.6f} / "
         f"{turns['library'][1]:.6f}; back to back {b2b['library'][0]:.6f} / "
@@ -2260,25 +2317,54 @@ def ssd_card_vs_cpu(cfg, p: dict, batch: int, seq: int, seed: int) -> dict:
             "beyond_tol": bad, "ok": bad == 0}
 
 
-def serve_family(cfg, params, tokens, n_attn: int, tag: str):
+class MaskTally:
+    """While active, counts the calls of the attention kernel's wrapper
+    from the model (``kernels.ops``) by its ``causal`` argument."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.calls = {True: 0, False: 0}
+        self._real = real = ops.flash_attention_bshd
+
+        def wrapper(*args, **kw):
+            self.calls[bool(kw["causal"])] += 1
+            return real(*args, **kw)
+
+        ops.flash_attention_bshd = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.flash_attention_bshd = self._real
+
+
+def serve_family(cfg, params, tokens, n_attn: int, tag: str, extras=None,
+                 n_noncausal: int = 0):
     """Phase 5's serving run for another family: launches of each
     attention kernel counted from 0 (``n_attn`` wgmma launches, one per
-    attention layer, and none of the CUDA-core kernel) and of the
-    ``fid_slots`` kernel (none: serving routes no records), finite
-    logits, well-formed tokens and phase 5's invalidation counts.
-    Returns the run's output, the attention launches by kernel and the
-    ``fid_slots`` launches."""
+    attention layer, ``n_noncausal`` of them without a causal mask, and
+    none of the CUDA-core kernel) and of the ``fid_slots`` kernel (none:
+    serving routes no records), finite logits, well-formed tokens and
+    phase 5's invalidation counts.  Returns the run's output, the
+    attention launches by kernel and the ``fid_slots`` launches."""
     from repro_torch.kernels import flash_attention as fa, stream_ops
     from repro_torch.launch import serve as S
     fa.launches = fa.launches_sm90 = fa.launches_simt = 0
     stream_ops.launches = 0
-    out = S.serve(cfg, params, tokens, gen_len=SERVE_G,
-                  replicas=SERVE_REPLICAS)
+    with MaskTally() as masks:
+        out = S.serve(cfg, params, tokens, extras=extras, gen_len=SERVE_G,
+                      replicas=SERVE_REPLICAS)
     launches = {fa.SM90: fa.launches_sm90, fa.SIMT: fa.launches_simt}
     slots = stream_ops.launches
     check(launches == {fa.SM90: n_attn, fa.SIMT: 0} and
           fa.launches == n_attn, f"{tag}: attention launches {launches}, "
           f"not {n_attn} of {fa.SM90} and none of {fa.SIMT}")
+    check(masks.calls[False] == n_noncausal and
+          masks.calls[True] == n_attn - n_noncausal,
+          f"{tag}: attention calls by causal mask {masks.calls}, not "
+          f"{n_noncausal} without one")
+    # every call went to the wgmma kernel (checked above)
+    out["noncausal_launches"] = {fa.SM90: masks.calls[False], fa.SIMT: 0}
     check(slots == 0, f"{tag}: {slots} fid_slots launches while serving")
     logits, gen = out["prefill_logits"], out["generated"]
     check(bool(torch.isfinite(logits).all()), f"{tag}: logits not finite")
@@ -2292,10 +2378,10 @@ def serve_family(cfg, params, tokens, n_attn: int, tag: str):
     return out, launches, slots
 
 
-def serve_numbers(out) -> dict:
+def serve_numbers(out, prompt_len: int = SERVE_P) -> dict:
     steps = out["decode_steps"]
     return {"prefill_ms": out["prefill_s"] * 1e3,
-            "prompt_tokens_per_s": SERVE_B * SERVE_P / out["prefill_s"],
+            "prompt_tokens_per_s": SERVE_B * prompt_len / out["prefill_s"],
             "decode_ms_per_step": out["decode_s"] * 1e3 / steps,
             "decode_tokens_per_s": SERVE_B * steps / out["decode_s"],
             "generated_tokens_per_s": SERVE_B * SERVE_G
@@ -2305,37 +2391,55 @@ def serve_numbers(out) -> dict:
             "remaining_pages": out["remaining_pages"]}
 
 
-def profiled_serve(cfg, params, tokens, n_attn: int, tag: str) -> dict:
-    """The launcher's prefill alone under the profiler (its attention
-    kernels by name: ``n_attn`` of the wgmma kernel, none of the
-    CUDA-core one; its device time), then the whole serving run again
+def profiled_serve(cfg, params, tokens, n_attn: int, tag: str,
+                   extras=None) -> dict:
+    """The launcher's prefill alone under the profiler (its device time
+    and its attention kernels by name), then the whole serving run again
     under another (device busy against wall, by kind of kernel).  The
-    names are counted on the short profile: a profile of the whole run
-    holds some 30,000 kernel records, and one of them went missing once
-    while the wrapper's counters were exact."""
+    prefill's attention launches are held three ways: by the wrapper's
+    counters, by the counts the kernels keep of themselves on the card
+    (``n_attn`` of the wgmma kernel, none of the CUDA-core one, exactly),
+    and by the profiler's kernel names.  A CUDA trace may lose a record
+    (one of the 40 wgmma records of pixtral-12b's prefill went missing
+    once, and one of some 30,000 in a profile of a whole serving run,
+    while both other counts were exact), so the names must show the
+    wgmma kernel (if ``n_attn`` > 0), at most ``n_attn`` times, and no
+    CUDA-core kernel."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve as S
     from repro_torch.runtime.steps import build_prefill_step
     prefill = build_prefill_step(cfg, max_seq=tokens.shape[1] + SERVE_G,
                                  attn_impl="flash")
+    want = {fa.SM90: n_attn, fa.SIMT: 0}
+    for name in want:
+        fa.device_launches(name, reset=True)
+    fa.launches = fa.launches_sm90 = fa.launches_simt = 0
     torch.cuda.synchronize()
     with torch.inference_mode(), \
             profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        prefill(params, {"tokens": tokens})
+        prefill(params, {"tokens": tokens, **(extras or {})})
         torch.cuda.synchronize()
         prefill_wall_ms = (time.perf_counter() - t0) * 1e3
-    seen = {name: kernel_count(prof, name) for name in (fa.SM90, fa.SIMT)}
-    check(seen == {fa.SM90: n_attn, fa.SIMT: 0},
-          f"{tag}: the profiled prefill's attention kernels by name: {seen}")
+    counted = {fa.SM90: fa.launches_sm90, fa.SIMT: fa.launches_simt}
+    on_card = {name: fa.device_launches(name) for name in want}
+    seen = {name: kernel_count(prof, name) for name in want}
+    check(counted == want and on_card == want,
+          f"{tag}: the profiled prefill's attention launches: by the "
+          f"wrapper {counted}, counted on the card {on_card}, want {want}")
+    check(seen[fa.SM90] <= n_attn and (seen[fa.SM90] > 0) == (n_attn > 0)
+          and seen[fa.SIMT] == 0,
+          f"{tag}: the profiled prefill's attention kernels by name: {seen}"
+          f", counted on the card {on_card}")
     out = {"profiled_prefill_ms": prefill_wall_ms,
            "prefill_device_busy_ms": device_busy_ms(prof),
            "kernel_ms_in_prefill": device_busy_ms(prof, fa.SM90),
-           "profiled_kernel_launches": seen}
+           "profiled_kernel_launches": seen,
+           "device_counted_launches": on_card}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        S.serve(cfg, params, tokens, gen_len=SERVE_G,
+        S.serve(cfg, params, tokens, extras=extras, gen_len=SERVE_G,
                 replicas=SERVE_REPLICAS)
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms = device_busy_ms(prof)
@@ -2350,7 +2454,8 @@ def log_profiled(tag: str, res: dict) -> None:
     log(f"{tag} (profiled prefill alone): {res['profiled_prefill_ms']:.3f} "
         f"ms wall, device busy {res['prefill_device_busy_ms']:.3f} ms, of "
         f"which the wgmma kernel {res['kernel_ms_in_prefill']:.3f} ms; "
-        f"kernels by name {res['profiled_kernel_launches']}")
+        f"kernels by name {res['profiled_kernel_launches']}, counted on the "
+        f"card {res['device_counted_launches']}")
     by_class = res["device_ms_by_class"]
     log(f"{tag} (profiled serving run): {res['profiled_wall_ms']:.3f} ms "
         f"wall, device busy {res['device_busy_ms']:.3f} ms (idle "
@@ -2627,6 +2732,182 @@ def ssm_phase(seed: int, smi: str) -> dict:
     return res
 
 
+# ----------------------------------- phases 11 and 12: VLM and enc-dec
+def encdec_card_vs_cpu(cfg, params: dict, batch: int, frames: int,
+                       seq: int, seed: int) -> dict:
+    """Encoder layer 0 over ``frames`` frames, then decoder layer 0 over
+    ``seq`` positions with its cross attention to that layer's output,
+    in float32 on the card and on the CPU, the same seeded inputs: both
+    outputs and the cross k/v within ENCDEC_LAYER_TOL (rtol = atol)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    gen = torch.Generator().manual_seed(seed)
+    f = torch.randn(batch, frames, cfg.d_model, generator=gen)
+    x = torch.randn(batch, seq, cfg.d_model, generator=gen)
+    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    got = {}
+    for dev in (str(DEVICE), "cpu"):
+        enc, dec = (T._walk(lp, lambda _, t: t.to(device=dev,
+                                                   dtype=torch.float32))
+                    for lp in (params["enc_layers"][0], params["layers"][0]))
+        fd, xd = f.to(dev), x.to(dev)
+        e = T._enc_layer(enc, fd, cfg, T._positions(batch, frames, dev),
+                         "naive")
+        kv = tuple(L._split_heads(e @ dec["xattn"][w], KV, hd)
+                   for w in ("wk", "wv"))
+        y, _ = T._layer_forward(dec, xd, cfg, 0, T._positions(batch, seq, dev),
+                                "naive", kv)
+        got[dev] = [t.cpu() for t in (e, *kv, y)]
+        del enc, dec
+    card, host = got[str(DEVICE)], got["cpu"]
+    names = ("encoder layer", "cross k", "cross v", "decoder layer")
+    errs = {n: float((a - b).abs().max())
+            for n, a, b in zip(names, card, host)}
+    bad = sum(int(((a - b).abs() > ENCDEC_LAYER_TOL
+                   + ENCDEC_LAYER_TOL * b.abs()).sum())
+              for a, b in zip(card, host))
+    return {"batch": batch, "frames": frames, "seq": seq,
+            "max_abs_err": errs, "beyond_tol": bad, "ok": bad == 0}
+
+
+def fp32_prefill(params, cfg, tokens, extras):
+    """The last-position logits of the same model and inputs computed in
+    float32 (each weight cast at use, plain attention): the anchor of the
+    logits checks of phases 11 and 12."""
+    from repro_torch.models import transformer as T
+    T.COMPUTE_DTYPE = torch.float32
+    try:
+        return T.prefill(params, cfg, tokens, impl="naive", **extras)[0]
+    finally:
+        T.COMPUTE_DTYPE = torch.bfloat16
+
+
+def hold_near_fp32(what: str, got, plain, truth) -> dict:
+    """Logits of the path under test (``got``) against another path's
+    (``plain``) within LOGIT_ATOL.  At pixtral-12b's depth two bf16
+    evaluations of the same logits differ by about LOGIT_ATOL at the
+    max over 4 x 131,072 logits whatever their attention, and each is
+    about as far from the float32 computation ``truth`` (PERF.md): the
+    max is a draw from that rounding noise.  So where the two differ by
+    more, ``got``'s mean |diff| from ``truth`` must be within
+    NOISE_MARGIN of ``plain``'s: no more error than the other path has."""
+    d_got, d_plain = (got - truth).abs(), (plain - truth).abs()
+    out = {"max_abs": float((got - plain).abs().max()),
+           "max_abs_to_fp32": float(d_got.max()),
+           "plain_max_abs_to_fp32": float(d_plain.max()),
+           "mean_abs_to_fp32": float(d_got.mean()),
+           "plain_mean_abs_to_fp32": float(d_plain.mean())}
+    near = out["mean_abs_to_fp32"] <= (1 + NOISE_MARGIN) * \
+        out["plain_mean_abs_to_fp32"]
+    out["held_by"] = ("bound" if out["max_abs"] <= LOGIT_ATOL else
+                      "fp32 anchor" if near else "none")
+    check(out["held_by"] != "none", f"{what}: max |diff| {out['max_abs']} > "
+          f"{LOGIT_ATOL}, and farther from the float32 computation than "
+          f"the plain path: {out}")
+    return out
+
+
+def embeds_phase(arch: str, prompt_len: int, n_attn: int, n_noncausal: int,
+                 tag: str, seed: int, smi: str) -> dict:
+    """Phases 11 and 12, the families that take embeddings beside their
+    tokens: ``arch`` at full width and depth on phase 5's path, with the
+    inputs its launcher draws (``make_batch``: image-patch or frame
+    embeddings), ``SERVE_B`` prompts of ``prompt_len`` tokens; launch
+    counts, the profiled prefill and serving run, flash-vs-naive and
+    decode-vs-prefill logits, and an encoder-decoder's layer check."""
+    from repro_torch.launch import serve as S
+    from repro_torch.models import transformer as T
+    cfg, params, res = family_params(arch, seed, tag)
+    dev, P = DEVICE, prompt_len
+    res["prompt_len"] = P
+    batch = S.make_batch(cfg, SERVE_B, P, seed=seed, device=dev)
+    tokens = batch.pop("tokens")
+    res["extra_inputs"] = {k: list(v.shape) for k, v in batch.items()}
+    torch.cuda.reset_peak_memory_stats()
+    out, launches, slot_launches = serve_family(
+        cfg, params, tokens, n_attn, tag, extras=batch,
+        n_noncausal=n_noncausal)
+    res.update(serve_numbers(out, P))
+    res.update({"attention_launches": launches,
+                "noncausal_launches": out["noncausal_launches"],
+                "fid_slots_launches": slot_launches,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "weights_read_ms": res["weight_bytes"] / HBM_BYTES_PER_S
+                * 1e3})
+    log(f"{tag}: prefill {SERVE_B} x {P} tokens with {res['extra_inputs']} "
+        f"{res['prefill_ms']:.3f} ms ({res['prompt_tokens_per_s']:.1f} prompt "
+        f"tokens/s), decode {res['decode_ms_per_step']:.3f} ms per step over "
+        f"{res['decode_steps']} steps ({res['decode_tokens_per_s']:.1f} "
+        f"generated tokens/s); attention launches {launches} (without a "
+        f"causal mask {out['noncausal_launches']}), fid_slots "
+        f"{slot_launches}; invalidation evicted {out['evicted_per_replica']}, "
+        f"remaining pages {out['remaining_pages']}; peak memory "
+        f"{res['peak_memory_gb']:.3f} GB [{smi}]")
+    res.update(profiled_serve(cfg, params, tokens, n_attn, tag, batch))
+    res["kernel_share_of_prefill"] = (res["kernel_ms_in_prefill"]
+                                      / res["profiled_prefill_ms"])
+    log_profiled(tag, res)
+
+    logits = out["prefill_logits"]
+    with torch.inference_mode():
+        naive, _ = T.prefill(params, cfg, tokens, max_seq=P, impl="naive",
+                             **batch)
+        fvn = hold_near_fp32(f"{tag}: prefill logits, flash vs naive "
+                             "attention", logits, naive,
+                             fp32_prefill(params, cfg, tokens, batch))
+        del naive
+        torch.cuda.empty_cache()
+        # one decode step at position P after a prefill of P tokens, against
+        # the last logits of a prefill of P + 1 tokens
+        ext = S.make_tokens(cfg, SERVE_B, P + 1, seed=seed + 1, device=dev)
+        full, _ = T.prefill(params, cfg, ext, impl="flash", **batch)
+        _, cache = T.prefill(params, cfg, ext[:, :P],
+                             max_seq=P + 1 + DECODE_PROFILE_STEPS,
+                             impl="flash", **batch)
+        pos = torch.full((SERVE_B,), P, dtype=torch.int32, device=dev)
+        step, cache = T.decode_step(params, cfg, ext[:, P:], cache, pos)
+        dvp = hold_near_fp32(f"{tag}: decode at position {P} vs a "
+                             f"{P + 1}-token prefill", step[:, 0], full,
+                             fp32_prefill(params, cfg, ext, batch))
+        res.update(profiled_decode(cfg, params, step, cache, pos))
+        del cache, step, full
+    res.update({"flash_vs_naive": fvn, "decode_vs_prefill": dvp,
+                "logit_bound": LOGIT_ATOL, "noise_margin": NOISE_MARGIN,
+                "max_abs_logit": float(
+                    logits[:, :cfg.vocab_size].abs().max())})
+    for name, r in (("flash vs naive attention", fvn),
+                    (f"decode at position {P} vs a {P + 1}-token prefill",
+                     dvp)):
+        log(f"{tag}: last-position logits, {name}: max |diff| "
+            f"{r['max_abs']:.6f} (bound {LOGIT_ATOL}; held by "
+            f"{r['held_by']}); to the float32 computation max "
+            f"{r['max_abs_to_fp32']:.6f} / mean {r['mean_abs_to_fp32']:.6f}, "
+            f"the other path's max {r['plain_max_abs_to_fp32']:.6f} / mean "
+            f"{r['plain_mean_abs_to_fp32']:.6f}")
+    log(f"{tag}: |logits| up to {res['max_abs_logit']:.3f}")
+    log(f"{tag}: decode alone (profiled, {DECODE_PROFILE_STEPS} steps): "
+        f"{res['decode_profiled_wall_ms_per_step']:.3f} ms wall per step, "
+        f"device busy {res['decode_device_busy_ms_per_step']:.3f} ms (idle "
+        f"{100 * res['decode_idle_share']:.3f} %); reading the weights once "
+        f"takes at least {res['weights_read_ms']:.3f} ms [{smi}]")
+    if cfg.is_encoder_decoder:
+        layer = encdec_card_vs_cpu(cfg, params, LAYER_CHECK_B, cfg.n_frames,
+                                   P, seed)
+        res["layer_card_vs_cpu"] = layer
+        log(f"{tag}: encoder layer 0 over {cfg.n_frames} frames and decoder "
+            f"layer 0 over {P} positions with its cross attention, float32, "
+            f"card vs CPU: max |diff| {layer['max_abs_err']} "
+            f"({layer['beyond_tol']} beyond rtol=atol={ENCDEC_LAYER_TOL})")
+        check(layer["ok"], f"{tag}: layer 0 on the card differs from the "
+              f"CPU: {layer}")
+    res["phase_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{tag}: peak device memory over the whole phase, checks included: "
+        f"{res['phase_peak_memory_gb']:.3f} GB")
+    del params, out, logits, batch
+    torch.cuda.empty_cache()
+    return res
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2658,6 +2939,7 @@ def main() -> int:
     # tolerance (2e-5) does not survive TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import configs as C
     from repro_torch.kernels import _build, flash_attention as fa, stream_ops
     t0 = time.perf_counter()
     built = _build.build(stream_ops.SOURCE, *fa.SOURCES, verbose=True)
@@ -2675,6 +2957,13 @@ def main() -> int:
     tr = train_phase(args.seed, smi)
     mo = moe_phase(args.seed, smi)
     sm = ssm_phase(args.seed, smi)
+    vlm_layers = C.get_config(VLM_ARCH).n_layers
+    audio = C.get_config(AUDIO_ARCH)
+    vl = embeds_phase(VLM_ARCH, SERVE_P, vlm_layers, 0, "vlm",
+                            args.seed, smi)
+    au = embeds_phase(AUDIO_ARCH, AUDIO_P,
+                            audio.n_encoder_layers + audio.n_layers,
+                            audio.n_encoder_layers, "audio", args.seed, smi)
     at = k["sizes"][BATCH]
     kernels = {"kernels": [{
         "name": "fid_slots",
@@ -2692,6 +2981,8 @@ def main() -> int:
         "serve_launches": sv["fid_slots_launches"],
         "moe_launches": mo["fid_slots_launches"],
         "ssm_launches": sm["fid_slots_launches"],
+        "vlm_launches": vl["fid_slots_launches"],
+        "audio_launches": au["fid_slots_launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": at["ms"], "plain_ms": at["plain_ms"],
         "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
@@ -2721,8 +3012,15 @@ def main() -> int:
         "launches_by_phase": {"serve": sv["attention_launches"][kernel],
                               "train": tr["launches"]["flash_attention"],
                               "moe": mo["attention_launches"][kernel],
-                              "ssm": sm["attention_launches"][kernel]},
+                              "ssm": sm["attention_launches"][kernel],
+                              "vlm": vl["attention_launches"][kernel],
+                              "audio": au["attention_launches"][kernel]},
+        # of them, the audio phase's encoder layers, with no causal mask
+        "audio_noncausal_launches": au["noncausal_launches"][kernel],
         "moe_shape": fl["moe_shape"][kernel],
+        "vlm_shape": fl["vlm_shape"][kernel],
+        "enc_shape": fl["enc_shape"][kernel],
+        "dec_shape": fl["dec_shape"][kernel],
         "turns_ms": fl[kernel]["turns_ms"],
         "back_to_back_ms": fl[kernel]["back_to_back_ms"],
         "library_back_to_back_ms": fl[kernel]["library_back_to_back_ms"],
@@ -2747,6 +3045,8 @@ def main() -> int:
     print(json.dumps({"train": tr}), flush=True)
     print(json.dumps({"moe": mo}), flush=True)
     print(json.dumps({"ssm": sm}), flush=True)
+    print(json.dumps({"vlm": vl}), flush=True)
+    print(json.dumps({"audio": au}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

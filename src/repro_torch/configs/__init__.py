@@ -1,11 +1,9 @@
-"""Architecture registry: one module per ported architecture.
+"""Architecture registry: one module per assigned architecture.
 
 ``get_config(arch)`` returns the full (paper-exact) config;
 ``get_smoke(arch)`` a reduced same-family config for CPU tests.  Both
-are field for field the reference's (``repro/configs``).  The port
-covers the dense, MoE, SSM and hybrid families; an architecture of
-another family raises ``KeyError`` naming the ROADMAP.md item that
-brings it.
+are field for field the reference's (``repro/configs``), and the port
+runs every architecture the reference lists, in its order.
 """
 
 from __future__ import annotations
@@ -23,27 +21,17 @@ _MODULES: Dict[str, str] = {
     "granite-moe-1b-a400m": "granite_moe_1b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b",
     "jamba-v0.1-52b": "jamba_52b",
+    "pixtral-12b": "pixtral_12b",
+    "whisper-small": "whisper_small",
     "mamba2-780m": "mamba2_780m",
-}
-
-#: architectures of the reference not ported yet, and where they come
-NOT_YET_PORTED: Dict[str, str] = {
-    "pixtral-12b": "ROADMAP.md Queue 1, item 4 (image embeddings and "
-                   "the encoder-decoder)",
-    "whisper-small": "ROADMAP.md Queue 1, item 4 (image embeddings and "
-                     "the encoder-decoder)",
 }
 
 
 def list_archs() -> List[str]:
-    """The architectures the port runs."""
     return list(_MODULES)
 
 
 def _module(arch: str):
-    if arch in NOT_YET_PORTED:
-        raise KeyError(f"arch {arch!r} is not ported yet: "
-                       f"{NOT_YET_PORTED[arch]}")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {list(_MODULES)}")
     return importlib.import_module(f".{_MODULES[arch]}", __package__)
@@ -58,5 +46,4 @@ def get_smoke(arch: str) -> ModelConfig:
 
 
 __all__ = ["get_config", "get_smoke", "list_archs", "SHAPES",
-           "ModelConfig", "ShapeConfig", "shape_applicable",
-           "NOT_YET_PORTED"]
+           "ModelConfig", "ShapeConfig", "shape_applicable"]

@@ -51,6 +51,10 @@ constexpr int kThreads = 256;   // 4 threads per q row
 constexpr int kCols = kBK / 4;  // score columns per thread
 constexpr float kNegInf = -1e30f;
 
+// Launches that reached the card, counted by the kernel itself (block 0,
+// thread 0 adds one): a count that a host-side trace cannot lose.
+__device__ unsigned long long g_device_launches;
+
 struct Params {
   const void* q;
   const void* k;
@@ -95,6 +99,8 @@ __host__ __device__ __forceinline__ size_t smem_bytes(int d) {
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const Params p) {
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(&g_device_launches, 1ull);
   constexpr int kChunks = DMAX / 16;  // float4 accumulator chunks per thread
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -320,4 +326,23 @@ extern "C" int lcap_flash_attention(const void* q, const void* k,
                               ? launch_for_d<float>(p, blocks, s)
                               : launch_for_d<__nv_bfloat16>(p, blocks, s);
   return static_cast<int>(err);
+}
+
+// Launches of flash_fwd_kernel on card `device` since this library was
+// loaded or the count last reset, as the kernel counted them on the card;
+// with reset != 0 the count restarts from 0.  Synchronises with the card's
+// work.  Returns the count, or minus the cudaError_t of reading it.
+extern "C" long long lcap_flash_attention_device_launches(int reset,
+                                                           int device) {
+  cudaError_t err = cudaSetDevice(device);
+  unsigned long long n = 0;
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(&n, g_device_launches, sizeof n);
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero = 0;
+    err = cudaMemcpyToSymbol(g_device_launches, &zero, sizeof zero);
+  }
+  if (err != cudaSuccess) return -static_cast<long long>(err);
+  return static_cast<long long>(n);
 }

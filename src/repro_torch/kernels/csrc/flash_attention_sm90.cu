@@ -45,8 +45,9 @@
 //   - kv tiles of 64 rows.  ptxas gives a thread at most 168 registers
 //     here (three warps share each quarter of the register file) whatever
 //     setmaxnreg asks at run time; 64-row tiles keep the consumer's live
-//     state (O, 32 scores, 16 registers of P) within that at D <= 192 with
-//     no spills, where 128-row tiles spilled and serialised the wgmmas.
+//     state (O, 32 scores, 16 registers of P) within that with no spills
+//     at DP <= 128, where 128-row tiles spilled and serialised the wgmmas.
+//     ptxas -v (CUDA 12.8): DP = 192 spills 16 bytes, DP = 256 456 bytes.
 //   - Only the tiles that need it are masked (the causal diagonal, the
 //     window's edge, the Sk edge); tiles wholly above the diagonal or
 //     before the window are never loaded.
@@ -74,6 +75,10 @@ constexpr int kRowBytes = 128;
 constexpr int kS = kBK / 2;     // score registers per consumer thread
 constexpr int kP = kBK / 16;    // k16 steps of P.V
 constexpr float kLog2e = 1.4426950408889634f;
+
+// Launches that reached the card, counted by the kernel itself (block 0,
+// thread 0 adds one): a count that a host-side trace cannot lose.
+__device__ unsigned long long g_device_launches;
 
 struct Params {
   void* o;
@@ -374,6 +379,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
                           const Params p) {
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(&g_device_launches, 1ull);
   using L = Smem<DP>;
   constexpr int kGroups = DP / kGroupCols;
   constexpr int kN = DP / 64;  // 64-column pieces of the output
@@ -660,4 +667,23 @@ extern "C" int lcap_flash_attention_sm90(const void* q, const void* k,
   }
   if (map_err != CUDA_SUCCESS) return -static_cast<int>(map_err);
   return static_cast<int>(err);
+}
+
+// Launches of flash_fwd_sm90_kernel on card `device` since this library was
+// loaded or the count last reset, as the kernel counted them on the card;
+// with reset != 0 the count restarts from 0.  Synchronises with the card's
+// work.  Returns the count, or minus the cudaError_t of reading it.
+extern "C" long long lcap_flash_attention_sm90_device_launches(int reset,
+                                                                int device) {
+  cudaError_t err = cudaSetDevice(device);
+  unsigned long long n = 0;
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(&n, g_device_launches, sizeof n);
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero = 0;
+    err = cudaMemcpyToSymbol(g_device_launches, &zero, sizeof zero);
+  }
+  if (err != cudaSuccess) return -static_cast<long long>(err);
+  return static_cast<long long>(n);
 }

@@ -27,6 +27,9 @@ alone; the wrapper never falls back from one kernel to the other.
 - ``launches`` counts launches of either kernel, ``launches_sm90`` and
   ``launches_simt`` each kernel's own, so a run can show which kernel
   its attention went through.
+- ``device_launches(kernel, reset=...)`` reads the count each kernel keeps
+  of itself on the card (block 0 adds one per launch), so a check can hold
+  the wrapper's count against the launches that reached the card.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use
 (``_build``); nothing is compiled or loaded at import time.
@@ -142,6 +145,9 @@ def _bind_sm90(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.lcap_flash_attention_sm90.restype = ctypes.c_int
+    lib.lcap_flash_attention_sm90_device_launches.argtypes = [
+        ctypes.c_int, ctypes.c_int]
+    lib.lcap_flash_attention_sm90_device_launches.restype = ctypes.c_longlong
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -152,6 +158,29 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.lcap_flash_attention.restype = ctypes.c_int
+    lib.lcap_flash_attention_device_launches.argtypes = [
+        ctypes.c_int, ctypes.c_int]
+    lib.lcap_flash_attention_device_launches.restype = ctypes.c_longlong
+
+
+def device_launches(kernel: str, *, reset: bool = False,
+                    device: int = 0) -> int:
+    """Launches of ``kernel`` (``SM90`` or ``SIMT``) on card ``device``
+    since its library was loaded or the count last reset, as the kernel
+    counted them on the card; ``reset`` restarts the count from 0.  It
+    waits for the card's work to finish."""
+    if kernel == SM90:
+        n = _build.load(SOURCE_SM90, _bind_sm90) \
+            .lcap_flash_attention_sm90_device_launches(int(reset), device)
+    elif kernel == SIMT:
+        n = _build.load(SOURCE, _bind) \
+            .lcap_flash_attention_device_launches(int(reset), device)
+    else:
+        raise ValueError(f"unknown kernel {kernel!r}; {SM90} or {SIMT}")
+    if n < 0:
+        raise RuntimeError(f"reading {kernel}'s launch count failed: "
+                           f"cudaError {-n}")
+    return n
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

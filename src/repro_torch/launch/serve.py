@@ -11,13 +11,17 @@ loose metadata-cache invalidation.
 The prefill's attention runs through the hand-written CUDA kernel
 (``attn_impl="flash"``); the reference's launcher prefills with
 ``"naive"``.  Decode attention is plain PyTorch, as in the reference.
-Every family the port runs serves here: MoE layers attend as dense ones
-do, and an attention-free model (mamba2) launches no kernel.
+Every family serves here: MoE layers attend as dense ones do, an
+attention-free model (mamba2) launches no kernel, a VLM (pixtral) takes
+seeded random image-patch embeddings for its first positions, and an
+encoder-decoder (whisper) seeded random frame embeddings for its encoder,
+whose bidirectional attention launches the kernel with no causal mask.
 Runs on the card unless ``--device cpu`` is given; weights are random,
 from a seeded ``torch.Generator``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 """
 
@@ -33,15 +37,35 @@ import numpy as np
 import torch
 
 
-def make_tokens(cfg, batch: int, prompt_len: int, seed: int = 0,
-                device=None) -> torch.Tensor:
-    """The launcher's prompts: ``np.random.RandomState(seed)`` token ids,
-    as the reference's launcher draws them, on the card unless ``device``
-    asks for the CPU (``models.transformer.resolve_device``)."""
+def make_batch(cfg, batch: int, prompt_len: int, seed: int = 0,
+               device=None) -> Dict[str, torch.Tensor]:
+    """The launcher's inputs, drawn as the reference's launcher draws
+    them from one ``np.random.RandomState(seed)``: token ids
+    (``"tokens"``), then for an encoder-decoder float32 normal frame
+    embeddings (``"frames"``, (batch, n_frames, d_model)), then for a VLM
+    float32 normal image-patch embeddings (``"image_embeds"``, (batch,
+    n_image_patches, d_model)); on the card unless ``device`` asks for
+    the CPU (``models.transformer.resolve_device``)."""
     from ..models.transformer import resolve_device
+    dev = resolve_device(device)
     rng = np.random.RandomState(seed)
     ids = rng.randint(0, cfg.vocab_size, (batch, prompt_len))
-    return torch.from_numpy(ids.astype(np.int64)).to(resolve_device(device))
+    out = {"tokens": torch.from_numpy(ids.astype(np.int64)).to(dev)}
+
+    def normal(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+
+    if cfg.is_encoder_decoder:
+        out["frames"] = normal(batch, cfg.n_frames, cfg.d_model)
+    if cfg.n_image_patches:
+        out["image_embeds"] = normal(batch, cfg.n_image_patches, cfg.d_model)
+    return out
+
+
+def make_tokens(cfg, batch: int, prompt_len: int, seed: int = 0,
+                device=None) -> torch.Tensor:
+    """``make_batch``'s token ids alone."""
+    return make_batch(cfg, batch, prompt_len, seed, device)["tokens"]
 
 
 def _sync(device: torch.device) -> None:
@@ -49,9 +73,12 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve(cfg, params, tokens: torch.Tensor, *, gen_len: int,
+def serve(cfg, params, tokens: torch.Tensor, *,
+          extras: Optional[Dict[str, torch.Tensor]] = None, gen_len: int,
           replicas: int = 2) -> Dict:
-    """Prefill ``tokens`` (B, P), decode greedily to ``gen_len`` tokens
+    """Prefill ``tokens`` (B, P) with ``extras`` (``frames`` and
+    ``image_embeds``, as ``make_batch`` gives them), decode greedily to
+    ``gen_len`` tokens
     (the prefill's and ``gen_len - 1`` decode steps), then run the
     cache-invalidation loop over ``replicas`` page caches.  Returns the
     generated tokens, the prefill's last-position logits, host seconds
@@ -70,7 +97,7 @@ def serve(cfg, params, tokens: torch.Tensor, *, gen_len: int,
     with torch.inference_mode():
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": tokens})
+        logits, cache = prefill(params, {"tokens": tokens, **(extras or {})})
         out_tokens = [torch.argmax(logits, -1)]
         _sync(device)
         t1 = time.perf_counter()
@@ -118,9 +145,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     device = T.resolve_device(args.device)
     cfg = C.get_smoke(args.arch) if args.smoke else C.get_config(args.arch)
     params = T.init_params(cfg, seed=0, device=device)
-    tokens = make_tokens(cfg, args.batch, args.prompt_len, seed=0,
-                         device=device)
-    out = serve(cfg, params, tokens, gen_len=args.gen_len,
+    batch = make_batch(cfg, args.batch, args.prompt_len, seed=0,
+                       device=device)
+    tokens = batch.pop("tokens")
+    out = serve(cfg, params, tokens, extras=batch, gen_len=args.gen_len,
                 replicas=args.replicas)
     gen = out["generated"]
 

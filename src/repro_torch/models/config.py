@@ -3,7 +3,7 @@
 The port's own copy of ``repro/models/config.py`` (pure Python, so it
 is carried over unchanged: the same fields, defaults, derived
 properties and shapes).  ``param_count`` counts through the port's
-``transformer.count_params``, which covers the families the port runs."""
+``transformer.count_params``."""
 
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """Model building blocks in PyTorch: the port of
-``repro/models/layers.py`` for the decoder families (dense, MoE, and the
-gated norm of the SSD block).
+``repro/models/layers.py`` (norms, RoPE and sinusoidal positions,
+attention, cross attention, the MLP, the MoE and the gated norm of the
+SSD block).
 
 Everything takes explicit parameter dicts of tensors.  Attention has
 three interchangeable implementations with the same math:
@@ -17,8 +18,9 @@ annotations (``lshard``) or tensor-parallel head padding
 Weights keep the reference's ``x @ w`` orientation and are cast to the
 activations' type at every use, as in the reference.  The MoE layer's
 ``moe_variant`` only places tensors across devices, so on one device
-both variants are the same computation.  ``cross_attention_layer`` and
-``sinusoidal_positions`` come with their family (ROADMAP.md).
+both variants are the same computation.  ``cross_attention_layer``
+attends with ``naive`` always: the reference hard-codes it there, so it
+launches no kernel.
 """
 
 from __future__ import annotations
@@ -77,6 +79,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     x1, x2 = torch.split(x.float(), d // 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, device=None):
+    """(n, d) fp32 absolute positions: sin on the even columns, cos on the
+    odd ones, of ``position * 10000 ** (-2i / d)``.  The frequencies are
+    the correctly rounded fp32 exponentials (taken in float64 and rounded
+    once), so the table is the same on every device; the reference's come
+    from XLA:CPU's fp32 ``exp``, which misses the correctly rounded value
+    in some of them (ROADMAP.md, caveats)."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    expo = torch.arange(0, d, 2, dtype=torch.float32, device=device) * \
+        (-math.log(10000.0) / d)
+    div = torch.exp(expo.double()).float()
+    pe = torch.zeros(n, d, dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 # ----------------------------------------------------------------- attention
@@ -188,7 +207,9 @@ def attention_core(q, k, v, q_pos, k_pos, impl="naive", **kw):
 
 
 # ------------------------------------------------------------ attention layer
-def attn_params_layout(cfg: ModelConfig) -> Layout:
+def attn_params_layout(cfg: ModelConfig, cross: bool = False) -> Layout:
+    """q, k, v and output projections, with q/k/v biases where the config
+    has them; a cross-attention layout (``cross``) carries no biases."""
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     lay: Layout = {
         "wq": ((D, H * hd), D ** -0.5),
@@ -196,7 +217,7 @@ def attn_params_layout(cfg: ModelConfig) -> Layout:
         "wv": ((D, KV * hd), D ** -0.5),
         "wo": ((H * hd, D), (H * hd) ** -0.5),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         lay.update({"bq": ((H * hd,), 0.0), "bk": ((KV * hd,), 0.0),
                     "bv": ((KV * hd,), 0.0)})
     return lay
@@ -235,6 +256,23 @@ def attention_layer(p, x, cfg: ModelConfig, *, positions, window=0,
     q, k, v = _proj_qkv(p, x, cfg, rope=True, positions=positions)
     out = run_attention(q, k, v, positions, positions, cfg, causal=True,
                         window=window, impl=impl)
+    out = out.reshape(*x.shape[:-1], -1)
+    return out @ p["wo"].to(x.dtype)
+
+
+def cross_attention_layer(p, x, enc_kv, cfg: ModelConfig):
+    """Decoder-to-encoder attention: q from x (B,S,D), k and v
+    precomputed from the encoder's output, ``enc_kv = (k, v)`` each
+    (B, F, KV, hd).  Every position sees every frame (zero positions, no
+    mask); plain PyTorch (``naive``), as in the reference."""
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    q = _split_heads(x @ p["wq"].to(x.dtype), H, hd)
+    k, v = enc_kv
+    B, Sq = q.shape[0], q.shape[1]
+    q_pos = torch.zeros(B, Sq, dtype=torch.int32, device=x.device)
+    k_pos = torch.zeros(B, k.shape[1], dtype=torch.int32, device=x.device)
+    out = run_attention(q, k, v, q_pos, k_pos, cfg, causal=False,
+                        impl="naive")
     out = out.reshape(*x.shape[:-1], -1)
     return out @ p["wo"].to(x.dtype)
 

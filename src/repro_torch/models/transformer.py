@@ -1,6 +1,6 @@
-"""The decoder-only transformer in PyTorch: the port of
-``repro/models/transformer.py`` for the dense, MoE, SSM and hybrid
-families.
+"""The unified model in PyTorch: the port of
+``repro/models/transformer.py`` for all six families (dense, MoE, SSM,
+hybrid, VLM and the encoder-decoder).
 
 The reference stacks its layers into scan *bodies* of
 ``cfg.scan_period`` slots and iterates them with ``lax.scan``; the port
@@ -11,6 +11,16 @@ and every pass is a Python loop over layers.  A layer holds ``attn`` or
 ``cfg.layer_is_moe``; an SSM-family layer (mamba2) is the SSD block
 alone, with no ``ln2`` and no MLP.  Each MoE layer's auxiliary loss is
 summed into ``forward``'s ``aux``.
+
+A VLM (pixtral) replaces its first ``n_image_patches`` token embeddings
+with precomputed image-patch embeddings (``image_embeds``).  An
+encoder-decoder (whisper) runs an encoder stack over precomputed frame
+embeddings (``frames``; ``params["enc_layers"]``, one dict per layer:
+``ln1``, ``attn``, ``ln2``, ``mlp``, then ``enc_norm``) with
+bidirectional self-attention and no RoPE; each decoder layer adds
+``lnx`` and ``xattn``, attention to the encoder's output, whose k and v
+it computes once (``_enc_kv``) and keeps in its decode cache.  Both
+positions tables are sinusoidal where ``cfg.sinusoidal_pos`` is set.
 
 Parameters are plain nested dicts of tensors.  ``param_layout`` is the
 single source of truth: every leaf is (shape, init_std).  The matmul
@@ -30,9 +40,6 @@ layers cast them at use.
 ``torch.utils.checkpoint`` (non-reentrant), one checkpoint per layer
 where the reference wraps its scan body in ``jax.checkpoint``; the
 reference's policies map by name (``REMAT_POLICIES``).
-
-The encoder-decoder and VLM families raise ``NotImplementedError``
-naming the ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -53,23 +60,10 @@ COMPUTE_DTYPE = torch.bfloat16
 #: layout keys whose weights stay fp32: the norms (read as fp32 by
 #: ``rms_norm``) and the SSD leaves the reference reads as fp32 or casts
 #: at use
-FP32_KEYS = frozenset({"ln1", "ln2", "final_norm", "dt_bias", "A_log",
-                       "skip_D", "w_norm", "conv_b"})
-#: the families the port runs
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-_FAMILY_ITEM = {
-    "vlm": "ROADMAP.md Queue 1, item 4 (image embeddings and the "
-           "encoder-decoder)",
-    "audio": "ROADMAP.md Queue 1, item 4 (image embeddings and the "
-             "encoder-decoder)",
-}
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.family!r} family is not ported yet "
-            f"({_FAMILY_ITEM.get(cfg.family, 'ROADMAP.md Queue 1')})")
+FP32_KEYS = frozenset({"ln1", "ln2", "lnx", "final_norm", "enc_norm",
+                       "dt_bias", "A_log", "skip_D", "w_norm", "conv_b"})
+#: the families the port runs: all of the reference's
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -98,6 +92,9 @@ def _layer_layout(cfg: ModelConfig, l: int) -> L.Layout:
         out["attn"] = L.attn_params_layout(cfg)
     if cfg.family == "ssm":          # mamba2: the SSD block is the layer
         return out
+    if cfg.is_encoder_decoder:
+        out["lnx"] = ((D,), 0.0)
+        out["xattn"] = L.attn_params_layout(cfg, cross=True)
     out["ln2"] = ((D,), 0.0)
     if cfg.layer_is_moe(i):
         out["moe"] = L.moe_params_layout(cfg)
@@ -106,8 +103,14 @@ def _layer_layout(cfg: ModelConfig, l: int) -> L.Layout:
     return out
 
 
+def _enc_layer_layout(cfg: ModelConfig) -> L.Layout:
+    """Layout of an encoder layer (the reference's ``enc_body/slot0``)."""
+    D = cfg.d_model
+    return {"ln1": ((D,), 0.0), "attn": L.attn_params_layout(cfg),
+            "ln2": ((D,), 0.0), "mlp": L.mlp_params_layout(cfg)}
+
+
 def param_layout(cfg: ModelConfig) -> Dict:
-    _require_ported(cfg)
     D, V = cfg.d_model, cfg.padded_vocab
     out: Dict = {
         "embed": ((V, D), D ** -0.5),
@@ -116,6 +119,10 @@ def param_layout(cfg: ModelConfig) -> Dict:
     if not cfg.tie_embeddings:
         out["unembed"] = ((D, V), D ** -0.5)
     out["layers"] = [_layer_layout(cfg, l) for l in range(cfg.n_layers)]
+    if cfg.is_encoder_decoder:
+        out["enc_layers"] = [_enc_layer_layout(cfg)
+                             for _ in range(cfg.n_encoder_layers)]
+        out["enc_norm"] = ((D,), 0.0)
     return out
 
 
@@ -184,11 +191,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
 def params_to_jax(params: Dict, cfg: ModelConfig) -> Dict:
     """The inverse of ``params_from_jax``: the reference's parameter tree
     as fresh host numpy arrays, layer ``l`` stacked into body
-    ``l // scan_period``, slot ``l % scan_period`` (``body/slot{i}``).
-    Each leaf keeps the dtype held; bf16, which numpy lacks, widens to
+    ``l // scan_period``, slot ``l % scan_period`` (``body/slot{i}``),
+    and the encoder's layers stacked into ``enc_body/slot0``.  Each leaf
+    keeps the dtype held; bf16, which numpy lacks, widens to
     fp32 (exactly).  Also takes any tree shaped like the parameters (the
     optimizer's moments)."""
-    _require_ported(cfg)
     period = cfg.scan_period
     layers = params["layers"]
     if len(layers) % period:
@@ -210,15 +217,17 @@ def params_to_jax(params: Dict, cfg: ModelConfig) -> Dict:
             return {k: stack_tree([t[k] for t in trees]) for k in first}
         return stack(*trees)
 
-    out = {k: host(params[k]) for k in ("embed", "final_norm", "unembed")
-           if k in params}
+    out = {k: host(params[k]) for k in _TOP_KEYS if k in params}
     out["body"] = {f"slot{s}": stack_tree(layers[s::period])
                    for s in range(period)}
+    if "enc_layers" in params:
+        out["enc_body"] = {"slot0": stack_tree(params["enc_layers"])}
     return out
 
 
-#: what a layer of a ported family holds
-_LAYER_KEYS = ("ln1", "attn", "ssm", "ln2", "mlp", "moe")
+#: what a layer holds, and the leaves outside the layers
+_LAYER_KEYS = ("ln1", "attn", "ssm", "lnx", "xattn", "ln2", "mlp", "moe")
+_TOP_KEYS = ("embed", "final_norm", "unembed", "enc_norm")
 
 
 def params_from_jax(tree: Dict, *, device=None,
@@ -226,41 +235,57 @@ def params_from_jax(tree: Dict, *, device=None,
     """The port's parameters from the reference's parameter pytree as
     numpy arrays (``jax.tree.map(np.asarray, params)``).  A stacked body
     leaf ``[n_bodies, ...]`` of slot ``s`` becomes layer
-    ``body * scan_period + s``; weights keep the ``x @ w`` orientation;
-    matmul weights go to ``dtype``, ``FP32_KEYS`` leaves stay fp32."""
+    ``body * scan_period + s``, and encoder layer ``l`` is body ``l`` of
+    ``enc_body/slot0``; weights keep the ``x @ w`` orientation; matmul
+    weights go to ``dtype``, ``FP32_KEYS`` leaves stay fp32."""
     dev = resolve_device(device)
-    body = tree["body"]
-    period = len(body)
-    if sorted(body) != [f"slot{i}" for i in range(period)]:
-        raise ValueError(f"unexpected body slots {sorted(body)}")
-    slots = [body[f"slot{i}"] for i in range(period)]
-    if any(k not in _LAYER_KEYS for s in slots for k in s):
-        raise NotImplementedError(
-            f"only layers of {', '.join(_LAYER_KEYS)} are ported; "
-            f"got {sorted(set(k for s in slots for k in s))}")
-    n_bodies = len(np.asarray(slots[0]["ln1"]))
 
     def conv(path, a):
         a = np.array(a, copy=True, order="C")
         return torch.from_numpy(a).to(device=dev,
                                       dtype=_leaf_dtype(path, dtype))
 
-    def layer(b, s):
-        return _walk(slots[s], lambda path, a: conv(path, np.asarray(a)[b]))
+    def unstack(body):
+        period = len(body)
+        if sorted(body) != [f"slot{i}" for i in range(period)]:
+            raise ValueError(f"unexpected body slots {sorted(body)}")
+        slots = [body[f"slot{i}"] for i in range(period)]
+        if any(k not in _LAYER_KEYS for s in slots for k in s):
+            raise ValueError(
+                f"a layer holds {', '.join(_LAYER_KEYS)}; got "
+                f"{sorted(set(k for s in slots for k in s))}")
+        n_bodies = len(np.asarray(slots[0]["ln1"]))
+        return [_walk(slots[s], lambda path, a: conv(path, np.asarray(a)[b]))
+                for b in range(n_bodies) for s in range(period)]
 
-    out = {k: conv((k,), tree[k]) for k in ("embed", "final_norm",
-                                            "unembed") if k in tree}
-    out["layers"] = [layer(b, s) for b in range(n_bodies)
-                     for s in range(period)]
+    out = {k: conv((k,), tree[k]) for k in _TOP_KEYS if k in tree}
+    out["layers"] = unstack(tree["body"])
+    if "enc_body" in tree:
+        out["enc_layers"] = unstack(tree["enc_body"])
     return out
 
 
 # ----------------------------------------------------------------- forward
-def _embed(params, cfg: ModelConfig, tokens):
+def _embed(params, cfg: ModelConfig, tokens, image_embeds=None):
+    """Token embeddings in the compute type; with ``image_embeds``
+    (B, n_image_patches, D) on a VLM the first ``n_image_patches``
+    positions are those embeddings instead, cast to the compute type.
+    The prompt must hold the patches: a shorter one raises (the
+    reference fails later, in RoPE)."""
     x = params["embed"][tokens.long()].to(COMPUTE_DTYPE)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=COMPUTE_DTYPE,
                              device=x.device)
+    if image_embeds is not None and cfg.n_image_patches:
+        n = cfg.n_image_patches
+        B, S, D = x.shape
+        if S < n or tuple(image_embeds.shape) != (B, n, D):
+            raise ValueError(
+                f"{cfg.arch_id}: image_embeds {list(image_embeds.shape)} "
+                f"must be ({B}, {n}, {D}) and fill the first {n} positions "
+                f"of the prompt, which has {S}")
+        x = torch.cat([image_embeds.to(device=x.device, dtype=COMPUTE_DTYPE),
+                       x[:, n:]], 1)
     return x
 
 
@@ -280,6 +305,15 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
+def _cross(lp, x, cfg: ModelConfig, enc_kv):
+    """A decoder layer's attention to the encoder (``lnx`` then
+    ``xattn`` over ``enc_kv``), where the layer has it."""
+    if "xattn" not in lp:
+        return x
+    hx = L.rms_norm(x, lp["lnx"], cfg.norm_eps)
+    return x + L.cross_attention_layer(lp["xattn"], hx, enc_kv, cfg)
+
+
 def _ffn(lp, x, cfg: ModelConfig):
     """The layer's second half, ``ln2`` then its MoE or MLP: (x, aux),
     aux None without MoE.  A layer without ``ln2`` (mamba2) has none."""
@@ -292,8 +326,9 @@ def _ffn(lp, x, cfg: ModelConfig):
     return x + L.mlp_layer(lp["mlp"], h2, cfg), None
 
 
-def _layer_forward(lp, x, cfg: ModelConfig, l: int, positions, impl):
-    """One layer over the full sequence: (x, aux or None)."""
+def _layer_forward(lp, x, cfg: ModelConfig, l: int, positions, impl,
+                   enc_kv=None):
+    """One decoder layer over the full sequence: (x, aux or None)."""
     i = l % cfg.scan_period
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.layer_kind(i) == "ssm":
@@ -301,7 +336,65 @@ def _layer_forward(lp, x, cfg: ModelConfig, l: int, positions, impl):
     else:
         x = x + L.attention_layer(lp["attn"], h, cfg, positions=positions,
                                   window=cfg.layer_window(i), impl=impl)
-    return _ffn(lp, x, cfg)
+    return _ffn(lp, _cross(lp, x, cfg, enc_kv), cfg)
+
+
+def _enc_layer(lp, x, cfg: ModelConfig, positions, impl):
+    """One encoder layer: bidirectional self-attention with no RoPE
+    (through ``attention_core``, so ``flash`` launches the kernel with
+    no causal mask), then the MLP."""
+    B, F, _ = x.shape
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = L._proj_qkv(lp["attn"], h, cfg, rope=False,
+                          positions=positions)
+    o = L.run_attention(q, k, v, positions, positions, cfg, causal=False,
+                        impl=impl)
+    x = x + o.reshape(B, F, -1) @ lp["attn"]["wo"].to(x.dtype)
+    h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + L.mlp_layer(lp["mlp"], h2, cfg)
+
+
+def _encode(params, cfg: ModelConfig, frames, impl="naive"):
+    """The encoder over frame embeddings (B, F, D): sinusoidal positions
+    added in the compute type, the encoder layers, ``enc_norm``."""
+    if frames is None:
+        raise ValueError(f"{cfg.arch_id} is an encoder-decoder: pass "
+                         "frames (B, n_frames, d_model)")
+    B, F, D = frames.shape
+    x = frames.to(COMPUTE_DTYPE) + L.sinusoidal_positions(
+        F, D, device=frames.device)[None].to(COMPUTE_DTYPE)
+    positions = _positions(B, F, x.device)
+    for lp in params["enc_layers"]:
+        x = _enc_layer(lp, x, cfg, positions, impl)
+    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _enc_kv(params, cfg: ModelConfig, enc_out) -> List:
+    """Each decoder layer's cross-attention k and v from the encoder's
+    output: a list of ``(k, v)``, each (B, F, KV, hd)."""
+    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    out = []
+    for lp in params["layers"]:
+        p = lp["xattn"]
+        out.append((L._split_heads(enc_out @ p["wk"].to(enc_out.dtype), KV,
+                                   hd),
+                    L._split_heads(enc_out @ p["wv"].to(enc_out.dtype), KV,
+                                   hd)))
+    return out
+
+
+def _decoder_input(params, cfg: ModelConfig, tokens, frames, image_embeds,
+                   impl):
+    """The embedded prompt with its sinusoidal positions where the config
+    has them, and each decoder layer's cross k/v (None but for an
+    encoder-decoder)."""
+    x = _embed(params, cfg, tokens, image_embeds)
+    if cfg.sinusoidal_pos:
+        x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model,
+                                       device=x.device)[None].to(x.dtype)
+    if not cfg.is_encoder_decoder:
+        return x, None
+    return x, _enc_kv(params, cfg, _encode(params, cfg, frames, impl=impl))
 
 
 #: the reference's remat policies (``runtime/steps.py::REMAT_POLICIES``)
@@ -325,32 +418,37 @@ def _dots_context():
     return create_selective_checkpoint_contexts(_save_dots)
 
 
-def forward(params, cfg: ModelConfig, tokens, *, impl="naive",
-            remat: bool = False, remat_policy: Optional[str] = None):
+def forward(params, cfg: ModelConfig, tokens, *, frames=None,
+            image_embeds=None, impl="naive", remat: bool = False,
+            remat_policy: Optional[str] = None):
     """Full-sequence forward: tokens (B,S) -> (logits (B,S,V) f32, aux),
     aux being the reference's auxiliary loss: the sum over MoE layers of
     each one's load-balance loss, in layer order (0 without MoE).
+    ``frames`` (B, n_frames, D) feed an encoder-decoder's encoder;
+    ``image_embeds`` (B, n_image_patches, D) a VLM's first positions.
 
-    ``remat``: recompute each layer in the backward pass, keeping what
-    ``remat_policy`` (a name of ``REMAT_POLICIES``; None means ``dots``,
-    the reference's default) saves."""
-    _require_ported(cfg)
+    ``remat``: recompute each decoder layer (with its cross k/v as an
+    input) in the backward pass, keeping what ``remat_policy`` (a name
+    of ``REMAT_POLICIES``; None means ``dots``, the reference's default)
+    saves.  The encoder is not recomputed, as in the reference."""
     policy = remat_policy or "dots"
     if policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {policy!r}: "
                          f"{', '.join(REMAT_POLICIES)}")
     recompute = remat and policy != "everything" and torch.is_grad_enabled()
     ckpt_kw = {"context_fn": _dots_context} if policy == "dots" else {}
-    B, S = tokens.shape
-    x = _embed(params, cfg, tokens)
-    positions = _positions(B, S, x.device)
+    B, Sq = tokens.shape
+    x, enc_kv = _decoder_input(params, cfg, tokens, frames, image_embeds,
+                               impl)
+    positions = _positions(B, Sq, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l, lp in enumerate(params["layers"]):
+        kv = None if enc_kv is None else enc_kv[l]
         if recompute:
             x, a = checkpoint(_layer_forward, lp, x, cfg, l, positions, impl,
-                              use_reentrant=False, **ckpt_kw)
+                              kv, use_reentrant=False, **ckpt_kw)
         else:
-            x, a = _layer_forward(lp, x, cfg, l, positions, impl)
+            x, a = _layer_forward(lp, x, cfg, l, positions, impl, kv)
         if a is not None:
             aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -378,33 +476,50 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype: torch.dtype = COMPUTE_DTYPE, device=None) -> List:
     """One dict per layer.  An attention layer's ``{"k", "v"}`` are each
     (batch, slots, KV, hd): ``max_seq`` slots for full attention,
-    ``min(max_seq, window)`` (a ring buffer) for sliding-window layers.
+    ``min(max_seq, window)`` (a ring buffer) for sliding-window layers;
+    a decoder layer of an encoder-decoder adds its cross k/v,
+    ``"cross_k"`` and ``"cross_v"``, each (batch, n_frames, KV, hd).
     An SSD layer's dict holds ``"conv"`` (batch, K-1, conv_dim) in
     ``dtype`` and ``"state"`` (batch, H, P, N) in fp32."""
-    _require_ported(cfg)
     dev = resolve_device(device)
     KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
 
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(*shape, dtype=dt, device=dev)
+
     def layer(l):
         if cfg.layer_kind(l % cfg.scan_period) == "ssm":
-            return {"conv": torch.zeros(batch, cfg.ssm_conv - 1, cfg.conv_dim,
-                                        dtype=dtype, device=dev),
-                    "state": torch.zeros(batch, cfg.ssm_heads,
-                                         cfg.ssm_head_dim, cfg.ssm_state,
-                                         dtype=torch.float32, device=dev)}
-        return {name: torch.zeros(batch, _cache_slots(cfg, l, max_seq), KV,
-                                  hd, dtype=dtype, device=dev)
-                for name in ("k", "v")}
+            return {"conv": zeros(batch, cfg.ssm_conv - 1, cfg.conv_dim),
+                    "state": zeros(batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                                   cfg.ssm_state, dt=torch.float32)}
+        out = {name: zeros(batch, _cache_slots(cfg, l, max_seq), KV, hd)
+               for name in ("k", "v")}
+        if cfg.is_encoder_decoder:
+            out.update({name: zeros(batch, cfg.n_frames, KV, hd)
+                        for name in ("cross_k", "cross_v")})
+        return out
 
     return [layer(l) for l in range(cfg.n_layers)]
+
+
+def _max_pos(cache: List) -> int:
+    """Positions the decoder's sinusoidal table covers: the first
+    attention cache's length (4096 without one), as in the reference."""
+    for layer in cache:
+        if "k" in layer:
+            return layer["k"].shape[1]
+    return 4096
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos):
     """One decode step.  token (B,1) int; pos (B,) int = position of
     this token.  Returns (logits (B,1,V) f32, cache); the cache tensors
     are written in place."""
-    _require_ported(cfg)
     x = _embed(params, cfg, token)
+    if cfg.sinusoidal_pos:
+        pe = L.sinusoidal_positions(_max_pos(cache), cfg.d_model,
+                                    device=x.device)
+        x = x + pe[pos.long()][:, None, :].to(x.dtype)
     new_cache = []
     for l, lp in enumerate(params["layers"]):
         i = l % cfg.scan_period
@@ -415,21 +530,26 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos):
             out, ck, cv = L.decode_attention(
                 lp["attn"], h, cache[l]["k"], cache[l]["v"], pos, cfg,
                 window=cfg.layer_window(i))
-            layer_cache = {"k": ck, "v": cv}
+            layer_cache = {**cache[l], "k": ck, "v": cv}
         new_cache.append(layer_cache)
-        x, _ = _ffn(lp, x + out, cfg)
+        x = x + out
+        if "xattn" in lp:
+            x = _cross(lp, x, cfg, (cache[l]["cross_k"], cache[l]["cross_v"]))
+        x, _ = _ffn(lp, x, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x), new_cache
 
 
-def prefill(params, cfg: ModelConfig, tokens, *,
-            max_seq: Optional[int] = None, impl="naive"):
+def prefill(params, cfg: ModelConfig, tokens, *, frames=None,
+            image_embeds=None, max_seq: Optional[int] = None, impl="naive"):
     """Run the full prompt, return (logits_last (B,V), cache) with the KV
-    cache sized to max_seq (>= prompt length)."""
-    _require_ported(cfg)
+    cache sized to max_seq (>= prompt length).  ``frames`` and
+    ``image_embeds`` as for ``forward``; an encoder-decoder's cache
+    keeps each decoder layer's cross k/v."""
     B, Sq = tokens.shape
     max_seq = max_seq or Sq
-    x = _embed(params, cfg, tokens)
+    x, enc_kv = _decoder_input(params, cfg, tokens, frames, image_embeds,
+                               impl)
     positions = _positions(B, Sq, x.device)
 
     def to_cache(k, v, l):
@@ -463,6 +583,9 @@ def prefill(params, cfg: ModelConfig, tokens, *,
                                 impl=impl)
             x = x + o.reshape(B, Sq, -1) @ lp["attn"]["wo"].to(x.dtype)
             layer_cache = to_cache(k, v, l)
+        if enc_kv is not None:
+            layer_cache["cross_k"], layer_cache["cross_v"] = enc_kv[l]
+            x = _cross(lp, x, cfg, enc_kv[l])
         cache.append(layer_cache)
         x, _ = _ffn(lp, x, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -46,7 +46,9 @@ REMAT_POLICIES = T.REMAT_POLICIES
 def build_train_step(cfg: ModelConfig, hp: TrainHParams):
     """Returns train_step(params, opt_state, batch) ->
     (params, opt_state, metrics).  ``batch`` is a dict with tokens and
-    labels (numpy or tensors), global batch leading; ``metrics`` holds
+    labels (+ frames / image_embeds when the arch needs them; numpy or
+    tensors), global batch leading, each key cut into the same
+    microbatches and passed on to ``loss_fn``; ``metrics`` holds
     ``loss`` and ``grad_norm`` as 0-d fp32 tensors on the parameters'
     device and ``lr`` as a float."""
     if hp.attn_impl == "flash":
@@ -61,9 +63,8 @@ def build_train_step(cfg: ModelConfig, hp: TrainHParams):
 
     def train_step(params, opt_state, batch):
         device = params["embed"].device
-        tokens, labels = (torch.as_tensor(batch[k]).to(device)
-                          for k in ("tokens", "labels"))
-        B = tokens.shape[0]
+        batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        B = batch["tokens"].shape[0]
         n_micro = min(hp.n_micro, B)
         if B % n_micro:
             raise ValueError(f"batch {B} does not split into {n_micro} "
@@ -76,10 +77,11 @@ def build_train_step(cfg: ModelConfig, hp: TrainHParams):
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
         with torch.enable_grad():
             for i in range(n_micro):
-                sl = slice(i * mb, (i + 1) * mb)
+                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
                 total, (loss, _aux) = T.loss_fn(
-                    params, cfg, tokens[sl], labels[sl], impl=hp.attn_impl,
-                    remat=hp.remat, remat_policy=hp.remat_policy)
+                    params, cfg, micro.pop("tokens"), micro.pop("labels"),
+                    impl=hp.attn_impl, remat=hp.remat,
+                    remat_policy=hp.remat_policy, **micro)
                 (total / n_micro).backward()
                 loss_sum += loss.detach()
         grads = adamw.tree_map(lambda p: p.grad, params)

@@ -8,13 +8,16 @@ D % 16 == 0, the CUDA-core kernel otherwise); each kernel must agree
 with the plain version within the reference's own tolerances
 (``tests/test_kernels.py``: 2e-5 for float32, 2e-2 for bfloat16) at
 every case of that file it takes, at the serving shape and at the extra
-bf16 cases, give 0 on fully masked rows, and refuse what it does not
+bf16 cases (pixtral-12b's head_dim 160 and whisper-small's non-causal
+encoder among them), give 0 on fully masked rows, and refuse what it does not
 take, inputs that need a gradient included.  The activity consumers of
 ``chip_smoke.py``'s phase 7 over a cluster routing on the card must end
 in the state they reach over one routing on the CPU, a training step
 on the card must agree with the same step on the CPU (phase 8), and one
 MoE layer and one SSD layer in float32 must agree between card and CPU
-(phases 9 and 10: routing equal, outputs within 1e-5 and 1e-4).
+(phases 9 and 10: routing equal, outputs within 1e-5 and 1e-4), and so
+must one encoder layer and one decoder layer of whisper-small (phase 12:
+within 1e-4).
 
 Imports only the port (the card's machine has no JAX and no msgpack),
 and skips where there is no CUDA card.  On a card:
@@ -156,28 +159,42 @@ def check_against_plain(got, q, k, v, case):
 
 @pytest.mark.parametrize("case", FLASH_CASES, ids=case_id)
 def test_flash_kernel_matches_plain_version(card, case):
-    """Through the wrapper: the kernel ``kernel_for`` picks, one launch."""
+    """Through the wrapper: the kernel ``kernel_for`` picks, one launch,
+    counted by the wrapper and by the kernel itself on the card."""
     shape, dtype, causal, window, cap = case
     q, k, v = qkv(shape, dtype, seed=sum(shape), device=card)
     kernel = fa.kernel_for(q.dtype, shape[5])
     before = (fa.launches, fa.launches_sm90, fa.launches_simt)
+    on_card = {name: fa.device_launches(name) for name in (fa.SM90, fa.SIMT)}
     got = fa.flash_attention_bshd(q, k, v, causal=causal, window=window,
                                   cap=cap)
     torch.cuda.synchronize()
     sm90 = int(kernel == fa.SM90)
     assert (fa.launches, fa.launches_sm90, fa.launches_simt) == (
         before[0] + 1, before[1] + sm90, before[2] + 1 - sm90)
+    assert {name: fa.device_launches(name) - n
+            for name, n in on_card.items()} == {fa.SM90: sm90,
+                                                fa.SIMT: 1 - sm90}
     check_against_plain(got, q, k, v, case)
 
 
 #: the serving path's shape, and bf16 cases beyond the reference's: the
 #: decode check's 2049-token prefill, gemma2-9b's head_dim with its window
-#: and softcap, and rows with nothing visible
+#: and softcap, and rows with nothing visible; then pixtral-12b's prefill
+#: (head_dim 160, padded to 192 in the wgmma kernel), whisper-small's
+#: encoder (non-causal over 1500 frames, not a multiple of the 64-row kv
+#: tile) and decoder prefill, and small non-causal cases with Sq != Sk and
+#: Sk not a multiple of 64
 SERVING = ((4, 2048, 2048, 32, 8, 128), "bfloat16", True, 0, 0.0)
 EXTRA_CASES = [SERVING,
                ((4, 2049, 2049, 32, 8, 128), "bfloat16", True, 0, 0.0),
                ((1, 96, 96, 4, 2, 224), "bfloat16", True, 16, 50.0),
-               ((1, 64, 16, 2, 1, 32), "bfloat16", True, 4, 0.0)]
+               ((1, 64, 16, 2, 1, 32), "bfloat16", True, 4, 0.0),
+               ((4, 2048, 2048, 32, 8, 160), "bfloat16", True, 0, 0.0),
+               ((4, 1500, 1500, 12, 12, 64), "bfloat16", False, 0, 0.0),
+               ((4, 224, 224, 12, 12, 64), "bfloat16", True, 0, 0.0),
+               ((2, 100, 1500, 4, 4, 64), "bfloat16", False, 0, 0.0),
+               ((1, 64, 130, 4, 2, 160), "bfloat16", False, 0, 0.0)]
 KERNEL_CASES = [(kernel, case) for case in FLASH_CASES + EXTRA_CASES
                 for kernel in (fa.SM90, fa.SIMT) if takes(kernel, case)]
 
@@ -322,4 +339,19 @@ def test_ssd_layer_on_the_card_like_on_the_cpu(card):
     cfg = C.get_config("mamba2-780m").replace(n_layers=1)
     params = M.init_params(cfg, seed=0, device="cpu")
     out = smoke.ssd_card_vs_cpu(cfg, params["layers"][0]["ssm"], 2, 300, 0)
+    assert out["ok"], out
+
+
+def test_encoder_decoder_layers_on_the_card_like_on_the_cpu(card):
+    """chip_smoke.py's phase 12 layer check at whisper-small's width:
+    one encoder layer over 1500 frames, then one decoder layer over 224
+    positions with its cross attention to it, in float32; both outputs
+    and the cross k/v within 1e-4 of the CPU's."""
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as M
+    smoke = load_smoke()
+    cfg = C.get_config("whisper-small").replace(n_layers=1,
+                                                n_encoder_layers=1)
+    params = M.init_params(cfg, seed=0, device="cpu")
+    out = smoke.encdec_card_vs_cpu(cfg, params, 2, cfg.n_frames, 224, 0)
     assert out["ok"], out

@@ -39,6 +39,8 @@ def test_every_port_module_is_listed():
                  "repro_torch.configs.qwen3_moe_30b",
                  "repro_torch.configs.mamba2_780m",
                  "repro_torch.configs.jamba_52b",
+                 "repro_torch.configs.pixtral_12b",
+                 "repro_torch.configs.whisper_small",
                  "repro_torch.configs.granite_8b",
                  "repro_torch.configs.gemma2_9b",
                  "repro_torch.runtime.steps", "repro_torch.track.tracker",
