@@ -119,13 +119,30 @@ Phases, in order; any failed check exits nonzero and prints no result:
             ``fid_slots`` launch; flash-vs-naive and decode-vs-prefill
             logits within 0.12; one encoder layer and one decoder layer
             with its cross attention in float32 on the card against the
-            CPU, within 1e-4.
+            CPU, within 1e-4;
+13. mesh    the sharded path on a one-rank NCCL process group (a
+            ``FileStore`` in a temporary directory) and
+            ``make_elastic_mesh(1)``'s (1, 1) ``DeviceMesh``: (a) phase 5's
+            granite-8b weights placed by ``specs.prefill_cell``'s
+            placements, phase 5's serving run under ``use_rules`` (36
+            wgmma launches a prefill through ``local_map``, by the
+            wrapper's counters and the kernel's own count on the card, none
+            of the CUDA-core kernel), prefill logits within 1e-3 of phase
+            5's, prefill and decode times beside phase 5's; (b) phase 8's
+            starcoder2-3b ``Trainer`` on the mesh (parameters and moments
+            placed by their logical axes, each step under the rules): a
+            warm-up step and 3 timed, losses within 1e-4 of phase 8's
+            first four, step ms, idle share (one more step profiled) and
+            peak memory beside phase 8's; (c) ``compressed_psum`` over the
+            one rank on the gradients of one more step, leaf by leaf:
+            every mean within half a quantization step of the gradient,
+            the error buffer exactly what was lost; the payload's bytes.
 
 Then a JSON line of serve numbers, one of wire numbers, one of activity
 numbers, one of training numbers, one of MoE serving numbers, one of SSD
 serving numbers, one of VLM serving numbers, one of audio serving
-numbers, one of kernels, the card's ``nvidia-smi`` line, and the result
-line ``{"ok": true, "device": {...}}`` last.  Imports nothing of
+numbers, one of mesh numbers, one of kernels, the card's ``nvidia-smi``
+line, and the result line ``{"ok": true, "device": {...}}`` last.  Imports nothing of
 JAX, of the reference package or of msgpack.
 """
 
@@ -279,7 +296,16 @@ ENCDEC_LAYER_TOL = 1e-4
 #: LOGIT_ATOL, how much farther from the float32 computation than the
 #: other path the path under test may be, in mean |diff| (relative)
 NOISE_MARGIN = 0.05
+#: phase 13: the sharded path on one rank runs phase 5's and phase 8's
+#: operations, so its logits and losses must equal theirs to these bounds
+MESH_LOGIT_TOL = 1e-3
+MESH_LOSS_TOL = 1e-4
+MESH_TIMED_STEPS = 3
+#: half a quantization step, and float32 rounding room
+COMPRESS_HALF_STEP = 0.5 + 2 ** -15
 DEVICE = torch.device("cuda")
+#: what phases 5 and 8 keep for phase 13 to compare with
+HELD: dict = {}
 
 
 class SmokeError(RuntimeError):
@@ -1827,6 +1853,8 @@ def serve_phase(seed: int) -> dict:
     log_profiled("serve", res)
 
     logits = out["prefill_logits"]
+    HELD["serve"] = {"logits": logits.float().cpu(),
+                     "generated": out["generated"].cpu()}
     with torch.inference_mode():
         naive, _ = T.prefill(params, cfg, tokens, max_seq=P, impl="naive")
         flash_vs_naive = float((logits - naive).abs().max())
@@ -2908,6 +2936,270 @@ def embeds_phase(arch: str, prompt_len: int, n_attn: int, n_noncausal: int,
     return res
 
 
+# ----------------------------------------------- phase 13: the sharded path
+def dtensor_host_share(fn) -> dict:
+    """``fn()`` under ``cProfile``: its host seconds (inflated by the
+    profiler), the share of them spent in the Python of
+    ``torch.distributed.tensor`` itself (self time of its functions: a
+    lower bound on DTensor's dispatch, whose C++ side is not counted),
+    and the functions of most self time."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    total = sum(v[2] for v in stats.values())
+    mark = str(Path("torch", "distributed", "tensor"))
+    own = sum(v[2] for k, v in stats.items() if mark in k[0])
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:8]
+    return {"profiled_s": total, "dtensor_python_s": own,
+            "dtensor_python_share": own / total if total else 0.0,
+            "top_self_s": [(f"{Path(k[0]).name}:{k[1]}({k[2]})",
+                            round(v[2], 6), v[1]) for k, v in top]}
+
+
+def mesh_serve(seed: int, mesh, smi: str, sv: dict) -> dict:
+    """(a): phase 5's granite-8b run under the rules on the one-rank mesh,
+    its weights placed by ``prefill_cell``'s placements."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.kernels import flash_attention as fa, stream_ops
+    from repro_torch.launch import serve as S
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.runtime import sharding as SH, specs as SP
+    cfg, params, res = family_params(SERVE_ARCH, seed, "mesh")
+    shape = ShapeConfig("mesh", SERVE_P, SERVE_B, "prefill")
+    rules = SP.cell_rules(cfg, shape, mesh)
+    _, (p_shard, _), _ = SP.prefill_cell(cfg, shape, rules)
+    placed = SP.map_axes(lambda axes, t, pl: distribute_tensor(t, mesh, pl),
+                         T.param_axes(cfg), params, p_shard)
+    del params
+    check(all(SH.is_dtensor(t) for t in _tensors(placed)),
+          "mesh: a parameter was not placed")
+    tokens = S.make_tokens(cfg, SERVE_B, SERVE_P, seed=seed, device=DEVICE)
+    for name in (fa.SM90, fa.SIMT):
+        fa.device_launches(name, reset=True)
+    fa.launches = fa.launches_sm90 = fa.launches_simt = 0
+    stream_ops.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    with SH.use_rules(rules):
+        for i in range(2):
+            out = S.serve(cfg, placed, tokens, gen_len=SERVE_G,
+                          replicas=SERVE_REPLICAS)
+            if i == 0:
+                launches = {fa.SM90: fa.launches_sm90, fa.SIMT:
+                            fa.launches_simt}
+                on_card = {name: fa.device_launches(name)
+                           for name in launches}
+                slots = stream_ops.launches
+            runs.append(serve_numbers(out))
+    # where a decode step's host time goes: DTensor's own Python
+    with SH.use_rules(rules), torch.inference_mode():
+        _, cache = T.prefill(placed, cfg, tokens, max_seq=SERVE_P + 4,
+                             impl="flash")
+        token = out["generated"][:, -1:]
+
+        def decode():
+            for i in range(3):
+                pos = torch.full((SERVE_B,), SERVE_P + i, dtype=torch.int32,
+                                 device=DEVICE)
+                T.decode_step(placed, cfg, token, cache, pos)
+            torch.cuda.synchronize()
+
+        host = dtensor_host_share(decode)
+        del cache
+    want = {fa.SM90: cfg.n_layers, fa.SIMT: 0}
+    check(launches == want and on_card == want,
+          f"mesh: attention launches of one sharded serving run: by the "
+          f"wrapper {launches}, counted on the card {on_card}, want {want}")
+    check(slots == 0, f"mesh: {slots} fid_slots launches while serving")
+    logits = out["prefill_logits"]
+    check(not SH.is_dtensor(logits) and tuple(logits.shape) ==
+          (SERVE_B, cfg.padded_vocab) and bool(torch.isfinite(logits).all()),
+          f"mesh: prefill logits {type(logits).__name__} "
+          f"{tuple(logits.shape)} not finite and whole")
+    diff = float((logits.float().cpu() - HELD["serve"]["logits"]).abs().max())
+    same = float((out["generated"].cpu() ==
+                  HELD["serve"]["generated"]).float().mean())
+    check(diff <= MESH_LOGIT_TOL, f"mesh: prefill logits differ from phase "
+          f"5's by {diff} > {MESH_LOGIT_TOL}")
+    res.update({"attention_launches": launches, "device_launches": on_card,
+                "fid_slots_launches": slots, "runs": runs,
+                "phase5": {k: sv[k] for k in ("prefill_ms",
+                                              "decode_ms_per_step")},
+                "logits_max_abs_vs_phase5": diff,
+                "generated_equal_share": same,
+                "decode_host_profile": host,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    for i, r in enumerate(runs):
+        log(f"mesh (a) run {i + 1}: prefill {SERVE_B} x {SERVE_P} tokens "
+            f"{r['prefill_ms']:.3f} ms (phase 5: {sv['prefill_ms']:.3f}), "
+            f"decode {r['decode_ms_per_step']:.3f} ms per step (phase 5: "
+            f"{sv['decode_ms_per_step']:.3f}) [{smi}]")
+    log(f"mesh (a): wgmma launches {launches[fa.SM90]} (on the card "
+        f"{on_card[fa.SM90]}), CUDA-core {launches[fa.SIMT]}; prefill "
+        f"logits max |diff| from phase 5's {diff!r} (bound "
+        f"{MESH_LOGIT_TOL}); generated tokens equal to phase 5's "
+        f"{100 * same:.3f} %; peak memory {res['peak_memory_gb']:.3f} GB")
+    log(f"mesh (a): 3 decode steps under cProfile: {host['profiled_s']:.3f}"
+        f" s of host time, {100 * host['dtensor_python_share']:.3f} % of it "
+        f"in torch.distributed.tensor's own Python; most self time (s, "
+        f"calls): {host['top_self_s']}")
+    del placed, out, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def compress_check(grads) -> dict:
+    """(c): ``compressed_psum`` over the one rank, leaf by leaf (the
+    whole tree's error buffer would not fit beside the training state):
+    each mean within half a quantization step of the gradient, the error
+    buffer exactly the gradient minus the mean."""
+    from repro_torch.optim import adamw, compress
+    from repro_torch.runtime.sharding import full
+    leaves = adamw.leaves(grads)
+    worst, n_bytes, n = 0.0, 0, 0
+    for g in leaves:
+        g = full(g.detach())
+        mean, err = compress.compressed_psum({"g": g},
+                                             {"g": torch.zeros_like(g)})
+        mean, err = mean["g"], err["g"]
+        # the step as compress computes it, in float32; a mean may miss
+        # half of it by the float32 rounding of g / scale and q * scale
+        # (each under 2^-17 of a step at |q| <= 127)
+        scale = float(g.abs().max() / 127.0 + 1e-12)
+        off = float((mean - g).abs().max())
+        check(off <= scale * COMPRESS_HALF_STEP, f"mesh (c): a mean is {off}"
+              f" from its gradient, more than half a step ({scale / 2})")
+        check(bool(torch.equal(err, g - mean)), "mesh (c): the error "
+              "buffer is not the gradient minus the mean")
+        worst = max(worst, off / scale)
+        n_bytes += compress.payload_bytes({"g": g})
+        n += g.numel()
+        del g, mean, err
+    return {"leaves": len(leaves), "elements": n, "payload_bytes": n_bytes,
+            "float32_bytes": 4 * n, "max_error_in_steps": worst}
+
+
+def mesh_train(seed: int, mesh, smi: str, tr: dict) -> dict:
+    """(b) and (c): phase 8's trainer on the mesh."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs as C
+    from repro_torch.kernels import flash_attention as fa, stream_ops
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as SH
+    from repro_torch.runtime.train_loop import Trainer
+    cfg = C.get_config(TRAIN_ARCH)
+    hp = train_hp()
+    gc.collect()
+    torch.cuda.empty_cache()
+    slots0, flash0 = stream_ops.launches, fa.launches
+    with tempfile.TemporaryDirectory() as wd:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, workdir=wd, mesh=mesh, hp=hp,
+                          global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                          n_hosts=TRAIN_HOSTS, ckpt_every=10 ** 9,
+                          seed=seed, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        check(trainer.rules is not None and all(
+            SH.is_dtensor(t) for t in adamw.leaves(trainer.params)),
+            "mesh (b): the trainer's parameters are not placed")
+        hist = list(trainer.run(1 + MESH_TIMED_STEPS))   # run() appends
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            prof_ms = trainer.run(1)[-1]["time"] * 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # (c) on the gradients of one more step, taken before AdamW
+        got = {}
+        update = adamw.update
+
+        def compress_then_update(grads, *a, **kw):
+            got.update(compress_check(grads))
+            return update(grads, *a, **kw)
+
+        adamw.update = compress_then_update
+        try:
+            trainer.run(1)
+        finally:
+            adamw.update = update
+        drain_trainer(trainer)
+        trainer.close()
+        del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in hist]
+    want = tr["losses"][:len(losses)]
+    diff = max(abs(a - b) for a, b in zip(losses, want))
+    check(all(np.isfinite(losses)) and diff <= MESH_LOSS_TOL,
+          f"mesh (b): losses {losses} differ from phase 8's {want} by "
+          f"{diff} > {MESH_LOSS_TOL}")
+    timed = [h["time"] * 1e3 for h in hist[1:]]
+    busy_ms = device_busy_ms(prof)
+    out = {"losses": losses, "phase8_losses": want,
+           "loss_max_abs_vs_phase8": diff, "init_s": init_s,
+           "step_ms": timed, "step_ms_median": statistics.median(timed),
+           "profiled_step_ms": prof_ms, "device_busy_ms": busy_ms,
+           "idle_share": 1 - busy_ms / prof_ms, "peak_memory_gb": peak_gb,
+           "device_ms_by_class": device_ms_by_class(prof),
+           "top_device_ops_ms": top_device_ops(prof),
+           "phase8": {k: tr[k] for k in ("step_ms_median", "idle_share",
+                                         "peak_memory_gb")},
+           "compress": got,
+           "launches": {"fid_slots": stream_ops.launches - slots0,
+                        "flash_attention": fa.launches - flash0}}
+    check(out["launches"] == {"fid_slots": 0, "flash_attention": 0},
+          f"mesh (b): kernel launches {out['launches']} while training")
+    check(got.get("leaves", 0) > 0, "mesh (c): no gradients compressed")
+    log(f"mesh (b): {TRAIN_ARCH} on the (1, 1) mesh: step "
+        f"{out['step_ms_median']:.3f} ms (median of {MESH_TIMED_STEPS}: "
+        f"{', '.join(f'{t:.3f}' for t in timed)}; phase 8: "
+        f"{tr['step_ms_median']:.3f}), profiled step {prof_ms:.3f} ms wall, "
+        f"device busy {busy_ms:.3f} ms (idle {100 * out['idle_share']:.3f} "
+        f"%; phase 8: {100 * tr['idle_share']:.3f} %), peak memory "
+        f"{peak_gb:.3f} GB (phase 8: {tr['peak_memory_gb']:.3f}); init "
+        f"{init_s:.3f} s [{smi}]")
+    log(f"mesh (b): losses {losses}, phase 8's {want}: max |diff| "
+        f"{diff!r} (bound {MESH_LOSS_TOL})")
+    log(f"mesh (c): compressed_psum over one NCCL rank, {got['leaves']} "
+        f"leaves of {got['elements']} elements: every mean within "
+        f"{got['max_error_in_steps']:.6f} of a quantization step of its "
+        f"gradient, error buffers exact; payload {got['payload_bytes']} "
+        f"bytes (int32, as the reference psums it; float32: "
+        f"{got['float32_bytes']})")
+    return out
+
+
+def mesh_phase(seed: int, smi: str, sv: dict, tr: dict) -> dict:
+    """Phase 13: a one-rank NCCL process group on a ``FileStore`` and
+    ``make_elastic_mesh(1)``'s (1, 1) mesh; (a) serving, (b) training and
+    (c) the compressed all-reduce on it; the group destroyed after."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.runtime.elastic import make_elastic_mesh
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            str(Path(d) / "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = make_elastic_mesh(1, device="cuda")
+            check(tuple(mesh.shape) == (1, 1) and
+                  tuple(mesh.mesh_dim_names) == ("data", "model"),
+                  f"mesh: {mesh}")
+            log(f"mesh: {mesh} on a one-rank NCCL group "
+                f"({dist.get_backend()})")
+            out = {"mesh_shape": [1, 1], "backend": dist.get_backend()}
+            out["serve"] = mesh_serve(seed, mesh, smi, sv)
+            out["train"] = mesh_train(seed, mesh, smi, tr)
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2964,6 +3256,7 @@ def main() -> int:
     au = embeds_phase(AUDIO_ARCH, AUDIO_P,
                             audio.n_encoder_layers + audio.n_layers,
                             audio.n_encoder_layers, "audio", args.seed, smi)
+    ms = mesh_phase(args.seed, smi, sv, tr)
     at = k["sizes"][BATCH]
     kernels = {"kernels": [{
         "name": "fid_slots",
@@ -2983,6 +3276,7 @@ def main() -> int:
         "ssm_launches": sm["fid_slots_launches"],
         "vlm_launches": vl["fid_slots_launches"],
         "audio_launches": au["fid_slots_launches"],
+        "mesh_launches": ms["serve"]["fid_slots_launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": at["ms"], "plain_ms": at["plain_ms"],
         "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
@@ -3014,7 +3308,11 @@ def main() -> int:
                               "moe": mo["attention_launches"][kernel],
                               "ssm": sm["attention_launches"][kernel],
                               "vlm": vl["attention_launches"][kernel],
-                              "audio": au["attention_launches"][kernel]},
+                              "audio": au["attention_launches"][kernel],
+                              "mesh": ms["serve"]["attention_launches"][
+                                  kernel]},
+        # phase 13's sharded serving run, through local_map, counted from 0
+        "mesh_launches": ms["serve"]["attention_launches"][kernel],
         # of them, the audio phase's encoder layers, with no causal mask
         "audio_noncausal_launches": au["noncausal_launches"][kernel],
         "moe_shape": fl["moe_shape"][kernel],
@@ -3047,6 +3345,7 @@ def main() -> int:
     print(json.dumps({"ssm": sm}), flush=True)
     print(json.dumps({"vlm": vl}), flush=True)
     print(json.dumps({"audio": au}), flush=True)
+    print(json.dumps({"mesh": ms}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,12 @@ imports).  It ports the reference slice by slice:
   checkpoints interchangeable with the reference's (``checkpoint``), the
   training step, straggler mitigation, the one-device elastic mesh and
   the trainer (``runtime``), and the training launcher
-  (``launch.train``).
+  (``launch.train``);
+- the sharded path: the reference's logical sharding rules as DTensor
+  placements over a ``DeviceMesh`` (``runtime.sharding``,
+  ``runtime.specs``, ``launch.mesh``), the int8 error-feedback
+  all-reduce (``optim.compress``) and the attention oracle
+  (``kernels.ref``).
 
 See ROADMAP.md for what is still to come.
 """

@@ -19,8 +19,12 @@ alone; the wrapper never falls back from one kernel to the other.
   bfloat16, ``H % KV == 0``, ``D <= 256``; it returns ``(B, Sq, H, D)`` in
   q's type.  On CUDA tensors it launches the chosen kernel and raises on
   anything that kernel does not take; on CPU tensors it runs
-  ``flash_attention_reference``.  It is forward only: with grad mode on
-  and an input that requires grad it raises on either device.
+  ``flash_attention_reference``.  DTensor q, k and v (a model under
+  sharding rules) run the same on each rank's local shard of batch and
+  heads, through ``local_map``, each rank with the kv heads of its own q
+  heads (``runtime.sharding.map_local_heads``).  It is forward only: with
+  grad mode on and an input that requires grad it raises on either
+  device.
 - ``flash_attention_reference`` is the plain PyTorch version: a masked
   softmax in fp32 with the kernels' semantics (a fully masked row gives
   0, where ``repro/kernels/ref.py`` gives NaN).
@@ -42,6 +46,7 @@ from typing import Optional
 
 import torch
 
+from ..runtime.sharding import is_dtensor, map_local_heads
 from . import _build
 
 SOURCE = _build.CSRC / "flash_attention.cu"
@@ -189,7 +194,11 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: Optional[float] = None) -> torch.Tensor:
     """Attention of q ``(B, Sq, H, D)`` over k, v ``(B, Sk, KV, D)``.
     CUDA tensors go through ``kernel_for``'s kernel (or raise); CPU
-    tensors go through ``flash_attention_reference``."""
+    tensors go through ``flash_attention_reference``; DTensors do either
+    on each rank's local shard."""
+    if is_dtensor(q):
+        return map_local_heads(flash_attention_bshd, q, k, v, causal=causal,
+                               window=window, cap=cap, scale=scale)
     window, cap = int(window), float(cap)
     _check(q, k, v, window, cap)
     if q.device.type == "cpu":

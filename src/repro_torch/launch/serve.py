@@ -80,11 +80,14 @@ def serve(cfg, params, tokens: torch.Tensor, *,
     ``image_embeds``, as ``make_batch`` gives them), decode greedily to
     ``gen_len`` tokens
     (the prefill's and ``gen_len - 1`` decode steps), then run the
-    cache-invalidation loop over ``replicas`` page caches.  Returns the
+    cache-invalidation loop over ``replicas`` page caches.  Under a
+    rules context with placed parameters the model runs sharded and the
+    logits are gathered whole for the greedy choice.  Returns the
     generated tokens, the prefill's last-position logits, host seconds
     of the prefill and of the decode steps (each ending in a device
     synchronise), and the invalidation counts."""
     from ..core.proxy import LcapProxy
+    from ..runtime.sharding import full
     from ..runtime.steps import build_decode_step, build_prefill_step
     from ..track import ActivityTracker, CacheInvalidator
 
@@ -98,6 +101,7 @@ def serve(cfg, params, tokens: torch.Tensor, *,
         _sync(device)
         t0 = time.perf_counter()
         logits, cache = prefill(params, {"tokens": tokens, **(extras or {})})
+        logits = full(logits)
         out_tokens = [torch.argmax(logits, -1)]
         _sync(device)
         t1 = time.perf_counter()
@@ -105,7 +109,7 @@ def serve(cfg, params, tokens: torch.Tensor, *,
             pos = torch.full((B,), P + i, dtype=torch.int32, device=device)
             step_logits, cache = decode(params, cache, out_tokens[-1][:, None],
                                         pos)
-            out_tokens.append(torch.argmax(step_logits, -1))
+            out_tokens.append(torch.argmax(full(step_logits), -1))
         gen = torch.stack(out_tokens, 1)
         _sync(device)
         t2 = time.perf_counter()

@@ -12,11 +12,15 @@ three interchangeable implementations with the same math:
 - ``flash``     — the hand-written CUDA kernel (``kernels/ops.py``); the
                   port's name for the reference's ``pallas``.
 
-Single-device code has no counterpart of the reference's sharding
-annotations (``lshard``) or tensor-parallel head padding
-(``pad_heads_for_tp``): both are no-ops without a rules context.
-Weights keep the reference's ``x @ w`` orientation and are cast to the
-activations' type at every use, as in the reference.  The MoE layer's
+The reference's sharding annotations (``lshard``) and tensor-parallel
+head padding (``pad_heads_for_tp``) stand where the reference has them;
+both are no-ops without a rules context (``runtime.sharding``).  Under
+rules activations are DTensors: attention runs on each rank's local
+batch and heads (``sharding.map_local_heads``), and decode attention on
+each rank's slice of the cache, merged across the ranks that hold the
+other slices (``_decode_dtensor``).  Weights keep the reference's
+``x @ w`` orientation and are cast to the activations' type at every
+use, as in the reference.  The MoE layer's
 ``moe_variant`` only places tensors across devices, so on one device
 both variants are the same computation.  ``cross_attention_layer``
 attends with ``naive`` always: the reference hard-codes it there, so it
@@ -31,13 +35,16 @@ from typing import Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..runtime.sharding import (axis_size, is_dtensor, keep_whole, like,
+                                lshard, map_local_heads)
 from .config import ModelConfig
 
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 1024
 INT32_MAX = 2 ** 31 - 1
 
-#: a layout leaf is (shape, init_std); a layout is a nested dict of them
+#: a layout leaf is (shape, logical_axes, init_std); a layout is a nested
+#: dict of them
 Layout = Dict[str, object]
 
 
@@ -73,7 +80,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     """x: (B, S, H, D); positions: (B, S) int.  Rotates the two halves of
     the head dim (not interleaved pairs), as the reference does."""
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, device=x.device)              # (d/2,)
+    freqs = like(rope_freqs(d, theta, device=x.device), positions)  # (d/2,)
     ang = positions[..., None].float() * freqs                 # (B,S,d/2)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.split(x.float(), d // 2, dim=-1)
@@ -194,6 +201,10 @@ def attention_core_blockwise(q, k, v, q_pos, k_pos, *, causal=True, window=0,
 
 
 def attention_core(q, k, v, q_pos, k_pos, impl="naive", **kw):
+    if impl != "flash" and is_dtensor(q):
+        # each rank's batch and heads, with its q heads' kv heads
+        return map_local_heads(attention_core, q, k, v, q_pos, k_pos,
+                               impl=impl, **kw)
     if impl == "blockwise":
         return attention_core_blockwise(q, k, v, q_pos, k_pos, **kw)
     kw.pop("block_q", None), kw.pop("block_k", None)
@@ -212,18 +223,21 @@ def attn_params_layout(cfg: ModelConfig, cross: bool = False) -> Layout:
     has them; a cross-attention layout (``cross``) carries no biases."""
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     lay: Layout = {
-        "wq": ((D, H * hd), D ** -0.5),
-        "wk": ((D, KV * hd), D ** -0.5),
-        "wv": ((D, KV * hd), D ** -0.5),
-        "wo": ((H * hd, D), (H * hd) ** -0.5),
+        "wq": ((D, H * hd), ("embed", "qkv"), D ** -0.5),
+        "wk": ((D, KV * hd), ("embed", "qkv"), D ** -0.5),
+        "wv": ((D, KV * hd), ("embed", "qkv"), D ** -0.5),
+        "wo": ((H * hd, D), ("qkv", "embed"), (H * hd) ** -0.5),
     }
     if cfg.qkv_bias and not cross:
-        lay.update({"bq": ((H * hd,), 0.0), "bk": ((KV * hd,), 0.0),
-                    "bv": ((KV * hd,), 0.0)})
+        lay.update({"bq": ((H * hd,), ("qkv",), 0.0),
+                    "bk": ((KV * hd,), ("qkv",), 0.0),
+                    "bv": ((KV * hd,), ("qkv",), 0.0)})
     return lay
 
 
 def _split_heads(x, n: int, hd: int):
+    if is_dtensor(x):
+        x = keep_whole(x, -1, n)
     return x.reshape(*x.shape[:-1], n, hd)
 
 
@@ -243,11 +257,58 @@ def _proj_qkv(p, x, cfg: ModelConfig, rope: bool, positions):
     return q, k, v
 
 
+def pad_heads_for_tp(q, k, v):
+    """Pad heads so the q-head count divides the tensor-parallel extent,
+    preserving the GQA q->kv grouping (zero-padded heads produce zeros
+    that are sliced off afterwards).  Two strategies, cheapest wins:
+    (A) pad the per-kv-group fan-out G; (B) pad whole kv groups."""
+    tp = axis_size("heads")
+    H, KV = q.shape[2], k.shape[2]
+    if tp <= 1 or (H % tp == 0 and H % KV == 0):
+        return q, k, v, H
+    G = H // KV
+
+    def ceil_to(g, mod):
+        while (g * mod) % tp:
+            g += 1
+        return g
+
+    GA = ceil_to(G, KV)              # strategy A: H2 = KV * GA
+    KVB = KV
+    while (KVB * G) % tp:
+        KVB += 1                     # strategy B: H2 = KVB * G
+    if KV * GA <= KVB * G:           # pad fan-out within each kv group
+        B_, S, _, D = q.shape
+        qg = q.reshape(B_, S, KV, G, D)
+        qg = F.pad(qg, (0, 0, 0, GA - G))
+        return qg.reshape(B_, S, KV * GA, D), k, v, H
+    # pad whole kv groups (adds zero kv heads and their zero q heads)
+    q2 = F.pad(q, (0, 0, 0, (KVB - KV) * G))
+    k2 = F.pad(k, (0, 0, 0, KVB - KV))
+    v2 = F.pad(v, (0, 0, 0, KVB - KV))
+    return q2, k2, v2, H
+
+
 def run_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, *, causal=True,
                   window=0, impl="naive"):
-    """Full-sequence attention; returns (B,S,H,hd)."""
-    return attention_core(q, k, v, q_pos, k_pos, impl=impl, causal=causal,
-                          window=window, cap=cfg.attn_softcap)
+    """Sharded full-sequence attention with TP head padding; returns
+    (B,S,H,hd) with the ORIGINAL head count and grouping."""
+    H, KV = q.shape[2], k.shape[2]
+    q2, k2, v2, H_orig = pad_heads_for_tp(q, k, v)
+    q2 = lshard(q2, "batch", "seq", "heads", "head_dim")
+    k2 = lshard(k2, "batch", "seq", "kv_heads", "head_dim")
+    v2 = lshard(v2, "batch", "seq", "kv_heads", "head_dim")
+    out = attention_core(q2, k2, v2, q_pos, k_pos, impl=impl, causal=causal,
+                         window=window, cap=cfg.attn_softcap)
+    if out.shape[2] != H_orig:
+        if k2.shape[2] == KV:                       # strategy A: regroup
+            G2 = out.shape[2] // KV
+            B_, S = out.shape[0], out.shape[1]
+            out = out.reshape(B_, S, KV, G2, -1)[:, :, :, :H // KV, :]
+            out = out.reshape(B_, S, H_orig, -1)
+        else:                                       # strategy B: tail slice
+            out = out[:, :, :H_orig, :]
+    return out
 
 
 def attention_layer(p, x, cfg: ModelConfig, *, positions, window=0,
@@ -288,28 +349,127 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig,
     Returns (out (B,1,D), cache_k, cache_v)."""
     B = x.shape[0]
     S_slot = cache_k.shape[1]
-    ring = bool(window) and S_slot == window
     q, k, v = _proj_qkv(p, x, cfg, rope=True, positions=pos[:, None])
-    write_pos = pos % S_slot if ring else pos
-    cache_k = _cache_insert(cache_k, k, write_pos)
-    cache_v = _cache_insert(cache_v, v, write_pos)
-    slots = torch.arange(S_slot, dtype=torch.int32, device=x.device)[None, :]
-    if ring:
+    cache_k = lshard(cache_k, "batch", "seq_kv", "kv_heads", "head_dim")
+    cache_v = lshard(cache_v, "batch", "seq_kv", "kv_heads", "head_dim")
+    if is_dtensor(q):
+        out, cache_k, cache_v = _decode_dtensor(
+            q, k, v, cache_k, cache_v, pos, window=window,
+            cap=cfg.attn_softcap)
+    else:
+        write_pos = pos % S_slot if _is_ring(window, S_slot) else pos
+        cache_k = _cache_insert(cache_k, k, write_pos)
+        cache_v = _cache_insert(cache_v, v, write_pos)
+        out = attention_core_naive(
+            q, cache_k, cache_v, pos[:, None],
+            _decode_k_pos(pos, 0, S_slot, S_slot, window), causal=True,
+            window=0, cap=cfg.attn_softcap)
+    out = out.reshape(B, 1, -1)
+    return out @ p["wo"].to(x.dtype), cache_k, cache_v
+
+
+def _is_ring(window: int, n_slots: int) -> bool:
+    return bool(window) and n_slots == window
+
+
+def _decode_k_pos(pos, slot0: int, n_local: int, n_slots: int, window: int):
+    """(B, n_local) logical position held by cache slots ``[slot0,
+    slot0 + n_local)`` of ``n_slots``, given the current ``pos``;
+    ``INT32_MAX`` where a slot is not visible."""
+    B = pos.shape[0]
+    slots = torch.arange(slot0, slot0 + n_local, dtype=torch.int32,
+                         device=pos.device)[None, :]
+    if _is_ring(window, n_slots):
         # logical position held by each slot, given the current pos
-        k_pos = pos[:, None] - (pos[:, None] - slots) % S_slot
+        k_pos = pos[:, None] - (pos[:, None] - slots) % n_slots
         valid = k_pos >= 0
     else:
-        k_pos = slots.expand(B, S_slot)
+        k_pos = slots.expand(B, n_local)
         valid = k_pos <= pos[:, None]
         if window:
             valid &= k_pos > pos[:, None] - window
-    k_pos_masked = torch.where(valid, k_pos,
-                               torch.full_like(k_pos, INT32_MAX))
-    out = attention_core_naive(q, cache_k, cache_v, pos[:, None],
-                               k_pos_masked, causal=True, window=0,
-                               cap=cfg.attn_softcap)
-    out = out.reshape(B, 1, -1)
-    return out @ p["wo"].to(x.dtype), cache_k, cache_v
+    return torch.where(valid, k_pos, torch.full_like(k_pos, INT32_MAX))
+
+
+def _attention_parts(q, k, v, q_pos, k_pos, cap=0.0):
+    """``attention_core_naive`` (causal) before its normalisation:
+    ``(acc (B,Sq,KV,G,D) fp32, row max, denominator)``, the last two
+    (B,KV,G,Sq,1).  A row with nothing visible has max -inf, and 0 in
+    both others."""
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, D)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * \
+        D ** -0.5
+    scores = softcap(scores, cap) + \
+        _mask_bias(q_pos, k_pos, True, 0)[:, None, None]
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - torch.where(torch.isinf(m), 0.0, m))
+    acc = torch.einsum("bkgst,btkd->bskgd", e, v.float())
+    return acc, m, e.sum(dim=-1, keepdim=True)
+
+
+def _decode_dtensor(q, k, v, cache_k, cache_v, pos, *, window, cap):
+    """Decode attention on DTensors, through ``local_map``: each rank
+    writes the new k/v row where its slice of the cache holds the slot
+    and attends over its slice with every head; the slices' softmax
+    parts are merged by all-reduces (the max, then the sums) over the
+    mesh dimensions that split the cache's slots (``seq_kv``), also
+    where such a dimension has one rank.  Writes the caches in place;
+    returns (out (B,1,H,hd), cache_k, cache_v), all sharded by batch as
+    the caches are."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = cache_k.device_mesh
+    cp = [p if p in (Shard(0), Shard(1)) else Replicate()
+          for p in cache_k.placements]
+    bp = [Shard(0) if p == Shard(0) else Replicate() for p in cp]
+    seq_dims = [i for i, p in enumerate(cp) if p == Shard(1)]
+    S_slot = cache_k.shape[1]
+    block, n_seq = 0, 1
+    for i in seq_dims:
+        block = block * mesh.size(i) + mesh.get_local_rank(i)
+        n_seq *= mesh.size(i)
+    if S_slot % n_seq:
+        raise ValueError(f"{S_slot} cache slots do not split evenly over "
+                         f"{n_seq} ranks")
+    S_local = S_slot // n_seq
+    lo = block * S_local
+
+    def local(ql, kl, vl, ck, cv, posl):
+        write_pos = (posl % S_slot if _is_ring(window, S_slot)
+                     else posl).long()
+        mine = ((write_pos >= lo) & (write_pos < lo + S_local))[:, None, None]
+        idx = torch.clamp(write_pos - lo, 0, S_local - 1)
+        b = torch.arange(ck.shape[0], device=ck.device)
+        for cache, new in ((ck, kl), (cv, vl)):
+            cache[b, idx] = torch.where(mine, new[:, 0].to(cache.dtype),
+                                        cache[b, idx])
+        acc, m, den = _attention_parts(
+            ql, ck, cv, posl[:, None],
+            _decode_k_pos(posl, lo, S_local, S_slot, window), cap=cap)
+        groups = [mesh.get_group(i) for i in seq_dims]
+        m_all = m.clone()
+        for g in groups:
+            dist.all_reduce(m_all, op=dist.ReduceOp.MAX, group=g)
+        corr = torch.exp(m - torch.where(torch.isinf(m_all), 0.0, m_all))
+        den = den * corr                                 # (B,KV,G,1,1)
+        acc = acc * corr[:, :, :, 0, 0][:, None, :, :, None]
+        for g in groups:
+            dist.all_reduce(den, group=g)
+            dist.all_reduce(acc, group=g)
+        den = den[:, :, :, 0, 0][:, None, :, :, None]
+        out = acc / torch.where(den == 0, 1.0, den)
+        return out.reshape(ql.shape).to(ql.dtype)
+
+    q, k, v = (t.redistribute(mesh, bp) for t in (q, k, v))
+    pos = lshard(pos, "batch").redistribute(mesh, bp)
+    cache_k, cache_v = (t.redistribute(mesh, cp) for t in (cache_k, cache_v))
+    run = local_map(local, out_placements=bp,
+                    in_placements=(bp, bp, bp, cp, cp, bp),
+                    device_mesh=mesh)
+    return run(q, k, v, cache_k, cache_v, pos), cache_k, cache_v
 
 
 def _cache_insert(cache, new, pos):
@@ -326,9 +486,9 @@ def mlp_params_layout(cfg: ModelConfig, d_ff: Optional[int] = None) -> Layout:
     D = cfg.d_model
     Fd = d_ff or cfg.d_ff
     return {
-        "w_gate": ((D, Fd), D ** -0.5),
-        "w_up": ((D, Fd), D ** -0.5),
-        "w_down": ((Fd, D), Fd ** -0.5),
+        "w_gate": ((D, Fd), ("embed", "mlp"), D ** -0.5),
+        "w_up": ((D, Fd), ("embed", "mlp"), D ** -0.5),
+        "w_down": ((Fd, D), ("mlp", "embed"), Fd ** -0.5),
     }
 
 
@@ -340,6 +500,7 @@ def _act(x, kind: str):
 def mlp_layer(p, x, cfg: ModelConfig):
     h = _act(x @ p["w_gate"].to(x.dtype), cfg.act) * \
         (x @ p["w_up"].to(x.dtype))
+    h = lshard(h, "batch", "seq", "mlp")
     return h @ p["w_down"].to(x.dtype)
 
 
@@ -352,10 +513,11 @@ EXPERT_KEYS = ("w_gate", "w_up", "w_down")
 def moe_params_layout(cfg: ModelConfig) -> Layout:
     D, E, Fd = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
     return {
-        "w_router": ((D, E), D ** -0.5),
-        "w_gate": ((E, D, Fd), D ** -0.5),
-        "w_up": ((E, D, Fd), D ** -0.5),
-        "w_down": ((E, Fd, D), Fd ** -0.5),
+        "w_router": ((D, E), ("embed", None), D ** -0.5),
+        "w_gate": ((E, D, Fd), ("experts", "embed", "expert_mlp"), D ** -0.5),
+        "w_up": ((E, D, Fd), ("experts", "embed", "expert_mlp"), D ** -0.5),
+        "w_down": ((E, Fd, D), ("experts", "expert_mlp", "embed"),
+                   Fd ** -0.5),
     }
 
 
@@ -460,10 +622,12 @@ def moe_experts(p, buf, cfg: ModelConfig):
     flat = buf.reshape(E, B * C, D)
     h = _act(torch.bmm(flat, p["w_gate"].to(dt)), cfg.act)
     h = h * torch.bmm(flat, p["w_up"].to(dt))
+    h = lshard(h, "experts", "batch", "expert_mlp")     # (E, B*C, F)
     return torch.bmm(h, p["w_down"].to(dt)).reshape(E, B, C, D)
 
 
-def moe_combine(out_buf, route: MoeRoute, S: int):
+def moe_combine(out_buf, route: MoeRoute, S: int,
+                replicated_buf: bool = False):
     """Each token's output: its K slots' expert outputs weighted by the
     router (dropped slots weigh 0), added one k after another in the
     activations' type, the order of the reference's scatter-add."""
@@ -473,6 +637,8 @@ def moe_combine(out_buf, route: MoeRoute, S: int):
     flat_e = route.top_e.reshape(B, S * K)
     bidx = torch.arange(B, device=out_buf.device)[:, None]
     gathered = out_buf[flat_e, bidx, route.pos.clamp(0, C - 1)]
+    if replicated_buf:
+        gathered = lshard(gathered, "batch", None, None)
     weight = route.keep.to(dt) * route.top_p.reshape(B, S * K).to(dt)
     g = (gathered * weight[..., None]).reshape(B, S, K, D)
     out = torch.zeros(B, S, D, dtype=dt, device=out_buf.device)
@@ -488,6 +654,14 @@ def moe_layer(p, x, cfg: ModelConfig, capacity: Optional[int] = None):
     C = capacity or moe_capacity(cfg, x.shape[1])
     route = moe_route(p, x, cfg, C)
     buf = moe_dispatch(x, route, cfg.n_experts, C)
-    out_buf = moe_experts(p, buf, cfg)
+    # the reference's (B, E, C, D) buffer annotations, on the port's
+    # expert-major (E, B, C, D): with ``replicated_buf`` the scatter stays
+    # rank-local and the expert outputs are gathered once before the
+    # combine
+    replicated = cfg.moe_variant == "replicated_buf"
+    buf_axes = (None if replicated else "experts", "batch", None, None)
+    buf = lshard(buf, *buf_axes)
+    out_buf = lshard(moe_experts(p, buf, cfg), *buf_axes)
     del buf
-    return moe_combine(out_buf, route, x.shape[1]), route.aux
+    return (moe_combine(out_buf, route, x.shape[1], replicated),
+            route.aux)

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..runtime.sharding import lshard
 from .config import ModelConfig
 from .layers import Layout, rms_norm_gated
 
@@ -34,14 +35,14 @@ def ssd_params_layout(cfg: ModelConfig) -> Layout:
     d_in = 2 * I + 2 * G * N + H
     conv_dim = cfg.conv_dim
     return {
-        "w_in": ((D, d_in), D ** -0.5),
-        "conv_w": ((conv_dim, K), conv_dim ** -0.5),
-        "conv_b": ((conv_dim,), 0.0),
-        "dt_bias": ((H,), 0.0),
-        "A_log": ((H,), 0.0),
-        "skip_D": ((H,), 0.0),
-        "w_norm": ((I,), 0.0),
-        "w_out": ((I, D), I ** -0.5),
+        "w_in": ((D, d_in), ("embed", "ssm_inner"), D ** -0.5),
+        "conv_w": ((conv_dim, K), ("ssm_inner", "conv"), conv_dim ** -0.5),
+        "conv_b": ((conv_dim,), ("ssm_inner",), 0.0),
+        "dt_bias": ((H,), ("ssm_heads",), 0.0),
+        "A_log": ((H,), ("ssm_heads",), 0.0),
+        "skip_D": ((H,), ("ssm_heads",), 0.0),
+        "w_norm": ((I,), ("ssm_inner",), 0.0),
+        "w_out": ((I, D), ("ssm_inner", "embed"), I ** -0.5),
     }
 
 
@@ -149,7 +150,7 @@ def ssd_layer(p, x, cfg: ModelConfig, cache: Optional[dict] = None,
     Cm = conv_out[..., cfg.d_inner + G * N:].reshape(B, S, G, N)
     dt = F.softplus(dt.float() + p["dt_bias"].float()[None, None, :])
     A = -torch.exp(p["A_log"].float())
-    xh = xc.reshape(B, S, H, P)
+    xh = lshard(xc.reshape(B, S, H, P), "batch", "seq", "ssm_heads", None)
     y, state = ssd_scan(xh, dt, A, Bm, Cm, cfg.ssm_chunk,
                         None if cache is None else cache.get("state"))
     y = y + xh.float().to(y.dtype) * \

@@ -23,7 +23,11 @@ it computes once (``_enc_kv``) and keeps in its decode cache.  Both
 positions tables are sinusoidal where ``cfg.sinusoidal_pos`` is set.
 
 Parameters are plain nested dicts of tensors.  ``param_layout`` is the
-single source of truth: every leaf is (shape, init_std).  The matmul
+single source of truth: every leaf is (shape, logical_axes, init_std),
+from which come random init, the abstract parameters (``device="meta"``
+tensors, the counterpart of ``jax.ShapeDtypeStruct``) and the axes that
+place them on a mesh (``param_axes``; ``cache_axes`` for the decode
+cache).  The matmul
 weights, embeddings and biases are held in the compute type (bf16), and
 the leaves the reference reads as fp32 stay fp32 (``FP32_KEYS``: the
 norms and the SSD block's ``dt_bias``, ``A_log``, ``skip_D``, ``w_norm``
@@ -49,9 +53,11 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..runtime.sharding import full, is_dtensor, keep_whole, like, lshard
 from . import layers as L
 from . import ssd as S
 from .config import ModelConfig
@@ -85,7 +91,7 @@ def _layer_layout(cfg: ModelConfig, l: int) -> L.Layout:
     ``_slot_layout`` for its slot ``l % scan_period``."""
     D = cfg.d_model
     i = l % cfg.scan_period
-    out: L.Layout = {"ln1": ((D,), 0.0)}
+    out: L.Layout = {"ln1": ((D,), ("embed",), 0.0)}
     if cfg.layer_kind(i) == "ssm":
         out["ssm"] = S.ssd_params_layout(cfg)
     else:
@@ -93,9 +99,9 @@ def _layer_layout(cfg: ModelConfig, l: int) -> L.Layout:
     if cfg.family == "ssm":          # mamba2: the SSD block is the layer
         return out
     if cfg.is_encoder_decoder:
-        out["lnx"] = ((D,), 0.0)
+        out["lnx"] = ((D,), ("embed",), 0.0)
         out["xattn"] = L.attn_params_layout(cfg, cross=True)
-    out["ln2"] = ((D,), 0.0)
+    out["ln2"] = ((D,), ("embed",), 0.0)
     if cfg.layer_is_moe(i):
         out["moe"] = L.moe_params_layout(cfg)
     else:
@@ -106,23 +112,23 @@ def _layer_layout(cfg: ModelConfig, l: int) -> L.Layout:
 def _enc_layer_layout(cfg: ModelConfig) -> L.Layout:
     """Layout of an encoder layer (the reference's ``enc_body/slot0``)."""
     D = cfg.d_model
-    return {"ln1": ((D,), 0.0), "attn": L.attn_params_layout(cfg),
-            "ln2": ((D,), 0.0), "mlp": L.mlp_params_layout(cfg)}
+    return {"ln1": ((D,), ("embed",), 0.0), "attn": L.attn_params_layout(cfg),
+            "ln2": ((D,), ("embed",), 0.0), "mlp": L.mlp_params_layout(cfg)}
 
 
 def param_layout(cfg: ModelConfig) -> Dict:
     D, V = cfg.d_model, cfg.padded_vocab
     out: Dict = {
-        "embed": ((V, D), D ** -0.5),
-        "final_norm": ((D,), 0.0),
+        "embed": ((V, D), ("vocab", "embed"), D ** -0.5),
+        "final_norm": ((D,), ("embed",), 0.0),
     }
     if not cfg.tie_embeddings:
-        out["unembed"] = ((D, V), D ** -0.5)
+        out["unembed"] = ((D, V), ("embed", "vocab"), D ** -0.5)
     out["layers"] = [_layer_layout(cfg, l) for l in range(cfg.n_layers)]
     if cfg.is_encoder_decoder:
         out["enc_layers"] = [_enc_layer_layout(cfg)
                              for _ in range(cfg.n_encoder_layers)]
-        out["enc_norm"] = ((D,), 0.0)
+        out["enc_norm"] = ((D,), ("embed",), 0.0)
     return out
 
 
@@ -173,7 +179,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def init(path, leaf):
-        shape, std = leaf
+        shape, _axes, std = leaf
         dt = _leaf_dtype(path, dtype)
         if std == 0.0:
             if path[-1] == "A_log":
@@ -186,6 +192,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
         return x.mul_(std).to(dt)
 
     return _walk(param_layout(cfg), init)
+
+
+def abstract_params(cfg: ModelConfig, dtype: torch.dtype = torch.float32
+                    ) -> Dict:
+    """The parameters as ``device="meta"`` tensors (shapes and dtypes,
+    no storage): matmul weights and embeddings in ``dtype``,
+    ``FP32_KEYS`` leaves in fp32, as ``init_params`` makes them."""
+    return _walk(param_layout(cfg), lambda path, leaf: torch.empty(
+        leaf[0], dtype=_leaf_dtype(path, dtype), device="meta"))
+
+
+def param_axes(cfg: ModelConfig) -> Dict:
+    """The logical axes of every parameter, in the parameters' layout."""
+    return _walk(param_layout(cfg), lambda path, leaf: leaf[1])
 
 
 def params_to_jax(params: Dict, cfg: ModelConfig) -> Dict:
@@ -203,7 +223,7 @@ def params_to_jax(params: Dict, cfg: ModelConfig) -> Dict:
                          f"{period} slots")
 
     def host(t: torch.Tensor) -> np.ndarray:
-        t = t.detach()
+        t = full(t).detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.to("cpu", copy=True).numpy()
@@ -272,7 +292,16 @@ def _embed(params, cfg: ModelConfig, tokens, image_embeds=None):
     positions are those embeddings instead, cast to the compute type.
     The prompt must hold the patches: a shorter one raises (the
     reference fails later, in RoPE)."""
-    x = params["embed"][tokens.long()].to(COMPUTE_DTYPE)
+    tokens = lshard(tokens, "batch", None)
+    table = params["embed"]
+    if is_dtensor(table):
+        # whole along the vocabulary on every rank first: DTensor cannot
+        # reduce a lookup's masked partial rows into a batch shard
+        table = keep_whole(table, 0, 1)
+    # ``F.embedding``, not indexing: the same rows, and a backward that
+    # DTensor can shard (indexing's ``index_put`` has no rule for a
+    # batch-sharded gradient in torch 2.11)
+    x = F.embedding(tokens.long(), table).to(COMPUTE_DTYPE)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=COMPUTE_DTYPE,
                              device=x.device)
@@ -297,12 +326,13 @@ def _unembed(params, cfg: ModelConfig, x):
     logits = L.softcap(logits.float(), cfg.logit_softcap)
     if cfg.padded_vocab != cfg.vocab_size:                 # mask pad rows
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
-        logits = logits.masked_fill(pad, -1e30)
-    return logits
+        logits = logits.masked_fill(like(pad, logits), -1e30)
+    return lshard(logits, "batch", "seq", "vocab")
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
-    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+    pos = torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+    return lshard(pos, "batch", "seq")
 
 
 def _cross(lp, x, cfg: ModelConfig, enc_kv):
@@ -361,8 +391,9 @@ def _encode(params, cfg: ModelConfig, frames, impl="naive"):
         raise ValueError(f"{cfg.arch_id} is an encoder-decoder: pass "
                          "frames (B, n_frames, d_model)")
     B, F, D = frames.shape
-    x = frames.to(COMPUTE_DTYPE) + L.sinusoidal_positions(
-        F, D, device=frames.device)[None].to(COMPUTE_DTYPE)
+    frames = lshard(frames, "batch", "frames", None)
+    x = frames.to(COMPUTE_DTYPE) + like(L.sinusoidal_positions(
+        F, D, device=frames.device)[None].to(COMPUTE_DTYPE), frames)
     positions = _positions(B, F, x.device)
     for lp in params["enc_layers"]:
         x = _enc_layer(lp, x, cfg, positions, impl)
@@ -390,8 +421,10 @@ def _decoder_input(params, cfg: ModelConfig, tokens, frames, image_embeds,
     encoder-decoder)."""
     x = _embed(params, cfg, tokens, image_embeds)
     if cfg.sinusoidal_pos:
-        x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model,
-                                       device=x.device)[None].to(x.dtype)
+        x = x + like(L.sinusoidal_positions(x.shape[1], cfg.d_model,
+                                            device=x.device)[None].to(x.dtype),
+                     x)
+    x = lshard(x, "batch", "seq", None)
     if not cfg.is_encoder_decoder:
         return x, None
     return x, _enc_kv(params, cfg, _encode(params, cfg, frames, impl=impl))
@@ -449,6 +482,7 @@ def forward(params, cfg: ModelConfig, tokens, *, frames=None,
                               kv, use_reentrant=False, **ckpt_kw)
         else:
             x, a = _layer_forward(lp, x, cfg, l, positions, impl, kv)
+        x = lshard(x, "batch", "seq", None)
         if a is not None:
             aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -460,8 +494,12 @@ def loss_fn(params, cfg: ModelConfig, tokens, labels, **fw_kw):
     """Mean next-token cross-entropy (log-sum-exp minus the label's
     logit) plus the auxiliary loss: ``(total, (loss, aux))``."""
     logits, aux = forward(params, cfg, tokens, **fw_kw)
+    labels = lshard(labels, "batch", None)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ll = torch.gather(logits, -1, labels.long()[..., None])
+    # under rules: the label logits summed over the vocab's ranks here,
+    # while the gather's masked partial result keeps its shape
+    ll = lshard(ll, "batch", "seq", None)[..., 0]
     loss = torch.mean(lse - ll)
     return loss + aux, (loss, aux)
 
@@ -473,15 +511,17 @@ def _cache_slots(cfg: ModelConfig, l: int, max_seq: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               dtype: torch.dtype = COMPUTE_DTYPE, device=None) -> List:
+               dtype: torch.dtype = COMPUTE_DTYPE, device=None,
+               abstract: bool = False) -> List:
     """One dict per layer.  An attention layer's ``{"k", "v"}`` are each
     (batch, slots, KV, hd): ``max_seq`` slots for full attention,
     ``min(max_seq, window)`` (a ring buffer) for sliding-window layers;
     a decoder layer of an encoder-decoder adds its cross k/v,
     ``"cross_k"`` and ``"cross_v"``, each (batch, n_frames, KV, hd).
     An SSD layer's dict holds ``"conv"`` (batch, K-1, conv_dim) in
-    ``dtype`` and ``"state"`` (batch, H, P, N) in fp32."""
-    dev = resolve_device(device)
+    ``dtype`` and ``"state"`` (batch, H, P, N) in fp32.  With ``abstract``
+    the tensors are ``device="meta"`` (shapes and dtypes only)."""
+    dev = torch.device("meta") if abstract else resolve_device(device)
     KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
 
     def zeros(*shape, dt=dtype):
@@ -502,6 +542,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     return [layer(l) for l in range(cfg.n_layers)]
 
 
+def cache_axes(cfg: ModelConfig) -> List:
+    """Logical axes matching ``init_cache``'s structure."""
+    kv = ("batch", "seq_kv", "kv_heads", "head_dim")
+    cross = ("batch", "frames", "kv_heads", "head_dim")
+
+    def layer(l):
+        if cfg.layer_kind(l % cfg.scan_period) == "ssm":
+            return {"conv": ("batch", None, "ssm_inner"),
+                    "state": ("batch", "ssm_heads", None, "state")}
+        out = {"k": kv, "v": kv}
+        if cfg.is_encoder_decoder:
+            out.update({"cross_k": cross, "cross_v": cross})
+        return out
+
+    return [layer(l) for l in range(cfg.n_layers)]
+
+
 def _max_pos(cache: List) -> int:
     """Positions the decoder's sinusoidal table covers: the first
     attention cache's length (4096 without one), as in the reference."""
@@ -516,10 +573,12 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos):
     this token.  Returns (logits (B,1,V) f32, cache); the cache tensors
     are written in place."""
     x = _embed(params, cfg, token)
+    pos = lshard(pos, "batch")
     if cfg.sinusoidal_pos:
-        pe = L.sinusoidal_positions(_max_pos(cache), cfg.d_model,
-                                    device=x.device)
+        pe = like(L.sinusoidal_positions(_max_pos(cache), cfg.d_model,
+                                         device=x.device), pos)
         x = x + pe[pos.long()][:, None, :].to(x.dtype)
+    x = lshard(x, "batch", "seq", None)
     new_cache = []
     for l, lp in enumerate(params["layers"]):
         i = l % cfg.scan_period
@@ -536,6 +595,7 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos):
         if "xattn" in lp:
             x = _cross(lp, x, cfg, (cache[l]["cross_k"], cache[l]["cross_v"]))
         x, _ = _ffn(lp, x, cfg)
+        x = lshard(x, "batch", "seq", None)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x), new_cache
 
@@ -563,9 +623,11 @@ def prefill(params, cfg: ModelConfig, tokens, *, frames=None,
             kp[:, :Sq], vp[:, :Sq] = k, v
         else:
             tail = min(Sq, slots)
-            idx = torch.arange(Sq - tail, Sq, device=k.device) % slots
+            idx = like(torch.arange(Sq - tail, Sq, device=k.device) % slots,
+                       k)
             kp[:, idx], vp[:, idx] = k[:, Sq - tail:], v[:, Sq - tail:]
-        return {"k": kp, "v": vp}
+        return {"k": lshard(kp, "batch", "seq_kv", "kv_heads", "head_dim"),
+                "v": lshard(vp, "batch", "seq_kv", "kv_heads", "head_dim")}
 
     cache = []
     for l, lp in enumerate(params["layers"]):
@@ -588,6 +650,7 @@ def prefill(params, cfg: ModelConfig, tokens, *, frames=None,
             x = _cross(lp, x, cfg, enc_kv[l])
         cache.append(layer_cache)
         x, _ = _ffn(lp, x, cfg)
+        x = lshard(x, "batch", "seq", None)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _unembed(params, cfg, x[:, -1:, :])
     return logits[:, 0, :], cache

@@ -1,6 +1,7 @@
-"""Optimizer of the port: AdamW (``adamw``)."""
+"""Optimizer of the port: AdamW (``adamw``) and the int8 error-feedback
+all-reduce of the data-parallel gradients (``compress``)."""
 
-from . import adamw
+from . import adamw, compress
 from .adamw import AdamWState, cosine_lr
 
-__all__ = ["adamw", "AdamWState", "cosine_lr"]
+__all__ = ["adamw", "compress", "AdamWState", "cosine_lr"]

@@ -13,6 +13,11 @@ corrections are computed on the host in float32, as the reference
 computes them on the device, and the card never waits on a copy of the
 step.  Trees are nested dicts and lists of tensors (the port's
 parameter layout); ``leaves`` walks them in one fixed order.
+
+Leaves may be DTensors (a trainer on a mesh): the moments take the
+parameters' placements, each update runs on each rank's shards, and the
+global norm sums each leaf's square over its ranks (a reduction across
+them) before it is added on the host's order of leaves.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from typing import Any, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from ..runtime.sharding import full
 
 _F32 = np.float32
 
@@ -52,11 +59,23 @@ def tree_map(fn, tree):
 
 
 def init(params) -> AdamWState:
-    """Zero fp32 moments shaped like ``params``, on their devices."""
+    """Zero fp32 moments shaped (and placed) like ``params``, on their
+    devices."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
     return AdamWState(step=0, m=tree_map(zeros, params),
                       v=tree_map(zeros, params))
+
+
+def abstract_state(abstract_params) -> AdamWState:
+    """The state of ``init`` as ``device="meta"`` tensors: fp32 moments
+    shaped like the parameters, and the step as a 0-d int32."""
+    def meta(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+    return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                      m=tree_map(meta, abstract_params),
+                      v=tree_map(meta, abstract_params))
 
 
 def cosine_lr(step: int, *, peak: float, warmup: int, total: int,
@@ -86,7 +105,7 @@ def clip_by_global_norm(grads, max_norm: float
     gl = leaves(grads)
     total = torch.zeros((), dtype=torch.float32, device=gl[0].device)
     for g in gl:
-        total += torch.sum(torch.square(g.float()))
+        total += full(torch.sum(torch.square(g.float())))
     gn = torch.sqrt(total)
     scale = torch.minimum(
         torch.ones_like(gn),

@@ -1,0 +1,287 @@
+"""Logical-axis sharding (MaxText-style rules) over a ``DeviceMesh``: the
+port of ``repro/runtime/sharding.py``.
+
+Model code annotates parameters and activations with *logical* axis
+names; a ``LogicalRules`` context maps them to mesh axes.  Outside a
+rules context every annotation is a no-op, so the same model code runs
+on one device, on a one-rank mesh and on many ranks.
+
+The reference maps a spec to a ``NamedSharding`` and lets XLA partition
+the program; the port maps it to DTensor placements, one per mesh
+dimension (``placements``), and ``lshard`` redistributes a ``DTensor``
+to them.  ``spec`` keeps the reference's per-dimension entries (``None``,
+a mesh axis name, or a tuple of names) so the two can be compared entry
+for entry.  ``map_local_heads`` runs an attention function on each
+rank's local batch and heads, with the kv heads of its own q heads.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+Axis = Union[None, str, Tuple[str, ...]]
+
+# default rules for the single-pod (data, model) mesh
+DEFAULT_RULES: Dict[str, Axis] = {
+    "batch": "data",          # global batch
+    "seq": None,              # sequence (replicated by default)
+    "seq_kv": "model",        # cached KV sequence in decode
+    "embed": "data",          # d_model rows of weights (FSDP shards here)
+    "mlp": "model",           # d_ff / ffn hidden (tensor parallel)
+    "heads": "model",         # attention heads (tensor parallel)
+    "kv_heads": None,         # kv heads (replicated; small for GQA)
+    "head_dim": None,
+    "qkv": "model",           # fused q/k/v output dim
+    "vocab": "model",         # embedding/logit vocab dim
+    "experts": "model",       # expert parallelism
+    "expert_mlp": None,       # per-expert ffn hidden
+    "layers": None,           # stacked scan bodies
+    "conv": None,
+    "ssm_inner": "model",     # SSD inner width
+    "ssm_heads": "model",
+    "state": None,
+    "frames": None,
+}
+
+# multi-pod: DP spans ("pod", "data")
+MULTIPOD_OVERRIDES: Dict[str, Axis] = {
+    "batch": ("pod", "data"),
+}
+
+
+def mesh_names(mesh) -> Tuple[str, ...]:
+    """A mesh's axis names, in mesh-dimension order."""
+    return tuple(mesh.mesh_dim_names)
+
+
+def mesh_size(mesh, ax: Axis) -> int:
+    """Ranks along mesh axis ``ax`` (a name or a tuple of names; 1 for
+    ``None``)."""
+    if ax is None:
+        return 1
+    names = mesh_names(mesh)
+    flat = (ax,) if isinstance(ax, str) else tuple(ax)
+    n = 1
+    for a in flat:
+        n *= int(mesh.shape[names.index(a)])
+    return n
+
+
+class LogicalRules:
+    """The logical-to-mesh mapping over ``mesh``: a ``DeviceMesh`` with
+    ``mesh_dim_names`` (or anything with ``mesh_dim_names`` and a
+    ``shape`` tuple, for specs alone)."""
+
+    def __init__(self, mesh, rules: Optional[Dict[str, Axis]] = None):
+        if not getattr(mesh, "mesh_dim_names", None):
+            raise ValueError("LogicalRules needs a mesh with mesh_dim_names")
+        self.mesh = mesh
+        self.rules = dict(DEFAULT_RULES)
+        if "pod" in mesh_names(mesh):
+            self.rules.update(MULTIPOD_OVERRIDES)
+        if rules:
+            self.rules.update(rules)
+
+    def spec(self, logical_axes: Sequence[Optional[str]]) -> Tuple[Axis, ...]:
+        """One entry per tensor dimension: ``None``, a mesh axis name or
+        a tuple of them, the reference's ``PartitionSpec`` entries."""
+        out = []
+        used = set()
+        for name in logical_axes:
+            ax = self.rules.get(name) if name else None
+            # a mesh axis may be used at most once per spec
+            if ax is not None:
+                flat = (ax,) if isinstance(ax, str) else tuple(ax)
+                if any(a in used for a in flat):
+                    ax = None
+                else:
+                    used.update(flat)
+            out.append(ax)
+        return tuple(out)
+
+    def placements(self, logical_axes: Sequence[Optional[str]]) -> List:
+        """DTensor placements of ``spec(logical_axes)``, one per mesh
+        dimension: ``Shard(d)`` where tensor dimension ``d`` names that
+        mesh axis, ``Replicate()`` otherwise."""
+        from torch.distributed.tensor import Replicate, Shard
+        names = mesh_names(self.mesh)
+        out = [Replicate() for _ in names]
+        for d, ax in enumerate(self.spec(logical_axes)):
+            if ax is None:
+                continue
+            flat = (ax,) if isinstance(ax, str) else tuple(ax)
+            dims = [names.index(a) for a in flat]
+            if dims != sorted(dims):
+                # DTensor shards one tensor dimension over several mesh
+                # dimensions in mesh order only
+                raise ValueError(f"mesh axes {flat} of dimension {d} are "
+                                 f"not in the mesh's order {names}")
+            for i in dims:
+                out[i] = Shard(d)
+        return out
+
+
+_tls = threading.local()
+
+
+def current_rules() -> Optional[LogicalRules]:
+    return getattr(_tls, "rules", None)
+
+
+@contextlib.contextmanager
+def use_rules(rules: Optional[LogicalRules]):
+    prev = getattr(_tls, "rules", None)
+    _tls.rules = rules
+    try:
+        yield rules
+    finally:
+        _tls.rules = prev
+
+
+def axis_size(logical_name: str) -> int:
+    """Mesh extent the given logical axis maps to (1 without rules)."""
+    rules = current_rules()
+    if rules is None:
+        return 1
+    return mesh_size(rules.mesh, rules.rules.get(logical_name))
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def replicated(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x``, equal on every rank, as a DTensor replicated over ``mesh``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def like(x: torch.Tensor, ref) -> torch.Tensor:
+    """``x`` (equal on every rank) replicated over ``ref``'s mesh when
+    ``ref`` is a DTensor, else ``x`` itself: what a tensor made from
+    sizes or positions needs before it meets a DTensor."""
+    if is_dtensor(ref) and not is_dtensor(x):
+        return replicated(x, ref.device_mesh)
+    return x
+
+
+def full(x):
+    """The whole tensor of a DTensor (a collective over its mesh), or
+    ``x`` itself."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def keep_whole(x, dim: int, groups: int):
+    """DTensor ``x`` with dimension ``dim`` replicated along every mesh
+    dimension whose shards would cut one of its ``groups`` equal groups
+    (heads of a fused projection that do not split over the ranks), so
+    that a reshape into ``(groups, -1)`` keeps each group on one rank."""
+    from torch.distributed.tensor import Replicate, Shard
+    dim %= x.ndim
+    cut = [Replicate() if p == Shard(dim) and groups % x.device_mesh.size(i)
+           else p for i, p in enumerate(x.placements)]
+    return x if cut == list(x.placements) else \
+        x.redistribute(x.device_mesh, cut)
+
+
+def _fitted(placements, shape, mesh) -> List:
+    """``placements`` with each ``Shard(d)`` replicated instead where
+    dimension ``d`` has a single row or does not split into equal shards
+    over its mesh dimension: a microbatch of one stays whole (DTensor
+    cannot view a sharded dimension of one row away), as the reference's
+    ``cell_rules`` keeps a batch that does not divide the DP axes
+    whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = list(placements)
+    for i, p in enumerate(out):
+        if isinstance(p, Shard):
+            n, size = shape[p.dim], mesh.size(i)
+            if n == 1 or n % size:
+                out[i] = Replicate()
+    return out
+
+
+def lshard(x, *logical_axes):
+    """Constrain ``x`` to the mapping of ``logical_axes`` (no-op without
+    an active rules context).  Under rules a DTensor is redistributed to
+    the axes' placements; a plain tensor, which must be equal on every
+    rank, is first taken as replicated.  A dimension that does not split
+    evenly over its mesh axis, or has a single row, stays replicated
+    (``_fitted``)."""
+    rules = current_rules()
+    if rules is None:
+        return x
+    if x.ndim != len(logical_axes):
+        raise ValueError(f"rank {x.ndim} vs axes {logical_axes}")
+    if not is_dtensor(x):
+        x = replicated(x, rules.mesh)
+    want = tuple(_fitted(rules.placements(logical_axes), x.shape, rules.mesh))
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(rules.mesh, want)
+
+
+def _local_kv(k: torch.Tensor, first: int, n_q: int, group: int):
+    """The kv heads of global q heads ``[first, first + n_q)`` (q head
+    ``h`` reads kv head ``h // group``), laid out so that local q head
+    ``j`` reads local kv head ``j // (n_q / len)``: a contiguous slice
+    where the q heads cover whole groups or lie in one group, else one
+    kv head per q head."""
+    idx = torch.arange(first, first + n_q) // group
+    kv = torch.unique_consecutive(idx)
+    per = n_q // kv.numel()
+    if per * kv.numel() == n_q and bool(
+            (idx == kv.repeat_interleave(per)).all()):
+        lo = int(kv[0])
+        return k[:, :, lo:lo + kv.numel()]
+    return k[:, :, idx.to(k.device)]
+
+
+def map_local_heads(fn, q, k, v, *rest, **kw):
+    """``fn(q, k, v, *rest, **kw)`` on each rank's local shard of DTensor
+    q (B, Sq, H, D), k and v (B, Sk, KV, D), through ``local_map``.
+
+    Batch (dim 0) stays sharded as q has it, and so do q's heads (dim
+    2); everything else is gathered first (a no-op under the default
+    rules).  Each rank gets the kv heads of its own q heads, since
+    ``fn`` maps local q head ``j`` to local kv head ``j // G``: rank r of
+    tp holds q heads ``[r H/tp, (r+1) H/tp)``, which read kv heads from
+    ``r H/tp // G`` on.  ``rest`` are position tensors (B, S), sharded
+    by batch like q.  Returns q's placements."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    H, KV = q.shape[2], k.shape[2]
+    group = H // KV
+    qp = [p if p in (Shard(0), Shard(2)) else Replicate()
+          for p in q.placements]
+    bp = [Shard(0) if p == Shard(0) else Replicate() for p in qp]
+    q = q.redistribute(mesh, qp)
+    k, v = (like(t, q).redistribute(mesh, bp) for t in (k, v))
+    rest = tuple(like(t, q).redistribute(mesh, bp) for t in rest)
+    # the rank's block of q heads: mesh dims sharding heads, major first
+    block, n_blocks = 0, 1
+    for i, p in enumerate(qp):
+        if p == Shard(2):
+            block = block * mesh.size(i) + mesh.get_local_rank(i)
+            n_blocks *= mesh.size(i)
+    if H % n_blocks:
+        raise ValueError(f"{H} q heads do not split evenly over "
+                         f"{n_blocks} ranks; pad them (pad_heads_for_tp)")
+    n_q = H // n_blocks
+
+    def local(ql, kl, vl, *restl):
+        kl = _local_kv(kl, block * n_q, n_q, group)
+        vl = _local_kv(vl, block * n_q, n_q, group)
+        return fn(ql, kl.contiguous(), vl.contiguous(), *restl, **kw)
+
+    run = local_map(local, out_placements=qp,
+                    in_placements=(qp, bp, bp) + (bp,) * len(rest),
+                    device_mesh=mesh)
+    return run(q, k, v, *rest)

@@ -14,6 +14,11 @@ the reference does, and refuses ``flash``: the attention kernel has no
 backward pass in either package.  ``build_prefill_step`` defaults to the
 ``"flash"`` attention kernel (the reference's default is
 ``"blockwise"``): prompt ingestion is the path the kernel is for.
+
+Under a rules context (``sharding.use_rules``) with DTensor parameters
+the same steps run sharded: the batch is placed by its logical axes as
+the model reads it, gradients come back as DTensors, and the metrics
+are whole tensors on every rank.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from ..models import transformer as T
 from ..models.config import ModelConfig
 from ..optim import adamw
+from .sharding import full
 
 
 class TrainHParams(NamedTuple):
@@ -83,7 +89,7 @@ def build_train_step(cfg: ModelConfig, hp: TrainHParams):
                     impl=hp.attn_impl, remat=hp.remat,
                     remat_policy=hp.remat_policy, **micro)
                 (total / n_micro).backward()
-                loss_sum += loss.detach()
+                loss_sum += full(loss.detach())
         grads = adamw.tree_map(lambda p: p.grad, params)
         lr = adamw.cosine_lr(opt_state.step, peak=hp.peak_lr,
                              warmup=hp.warmup, total=hp.total_steps)

@@ -3,7 +3,9 @@
 reference's ``repro.kernels.ops.flash_attention`` running its Pallas
 kernel in interpret mode, at every case of tests/test_kernels.py; and
 the port's ``attention_core`` for ``naive``, ``blockwise`` and
-``flash`` against the reference's ``naive``.
+``flash`` against the reference's ``naive``; and the port's oracle
+``repro_torch.kernels.ref.attention_reference`` against the reference's
+(float32 within 1e-6, NaN on the same fully masked rows).
 
 The same seeded numpy inputs go to both packages.  Tolerances are the
 reference's own (tests/test_kernels.py): 2e-5 for float32 and 2e-2 for
@@ -19,9 +21,11 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp                                   # noqa: E402
 
 from repro.kernels import ops as ref_ops                  # noqa: E402
+from repro.kernels import ref as ref_oracle               # noqa: E402
 from repro.models import layers as ref_layers             # noqa: E402
 from repro_torch.kernels import flash_attention as fa     # noqa: E402
 from repro_torch.kernels import ops as port_ops           # noqa: E402
+from repro_torch.kernels import ref as port_oracle        # noqa: E402
 from repro_torch.models import layers as port_layers      # noqa: E402
 
 SHAPES = [
@@ -224,3 +228,29 @@ def test_wrapper_refuses_before_any_device_check(monkeypatch, case):
 def test_wrapper_refuses_a_device_it_does_not_run_on():
     with pytest.raises(ValueError, match="cuda or cpu"):
         fa.flash_attention_bshd(_meta(Q), _meta(KV), _meta(KV))
+
+
+#: the oracle's cases: tests/test_kernels.py's shapes, a window, a
+#: softcap, a non-causal case with Sq != Sk, and rows with nothing
+#: visible (window 4 over 16 keys: q >= 19), where both give NaN
+ORACLE_CASES = ([(shape, {}) for shape in SHAPES]
+                + [((2, 128, 128, 4, 2, 64), {"window": 8}),
+                   ((1, 128, 128, 4, 4, 64), {"cap": 20.0}),
+                   ((1, 64, 128, 4, 4, 64), {"causal": False}),
+                   ((1, 64, 16, 2, 1, 32), {"window": 4}),
+                   ((1, 32, 32, 2, 2, 32), {"scale": 0.3})])
+ORACLE_TOL = 1e-6
+
+
+@pytest.mark.parametrize("case", ORACLE_CASES,
+                         ids=lambda c: "-".join(map(str, c[0])) + str(c[1]))
+def test_attention_oracle_matches_reference(case):
+    shape, kw = case
+    (rq, rk, rv), (pq, pk, pv) = qkv(shape, "float32", sum(shape))
+    want = np.asarray(ref_oracle.attention_reference(rq, rk, rv, **kw))
+    got = port_oracle.attention_reference(pq, pk, pv, **kw).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    if "window" in kw and shape[2] < shape[1]:
+        assert np.isnan(want).any()              # the fully masked rows
+    np.testing.assert_allclose(got, want, rtol=ORACLE_TOL, atol=ORACLE_TOL)

@@ -17,7 +17,10 @@ on the card must agree with the same step on the CPU (phase 8), and one
 MoE layer and one SSD layer in float32 must agree between card and CPU
 (phases 9 and 10: routing equal, outputs within 1e-5 and 1e-4), and so
 must one encoder layer and one decoder layer of whisper-small (phase 12:
-within 1e-4).
+within 1e-4).  On a one-rank NCCL mesh (phase 13) the sharded path runs
+the unsharded operations: a flash prefill and decode steps within 1e-3,
+a training step within 1e-4, the wgmma kernel reached once through
+``local_map`` and bit-equal, and ``compressed_psum`` exact to its step.
 
 Imports only the port (the card's machine has no JAX and no msgpack),
 and skips where there is no CUDA card.  On a card:
@@ -355,3 +358,121 @@ def test_encoder_decoder_layers_on_the_card_like_on_the_cpu(card):
     params = M.init_params(cfg, seed=0, device="cpu")
     out = smoke.encdec_card_vs_cpu(cfg, params, 2, cfg.n_frames, 224, 0)
     assert out["ok"], out
+
+
+@pytest.fixture
+def nccl_mesh(card, tmp_path):
+    """A one-rank NCCL process group (a FileStore under ``tmp_path``, no
+    TCP port) and ``make_elastic_mesh(1)``'s (1, 1) ``DeviceMesh`` on the
+    card; the group is destroyed afterwards."""
+    import torch.distributed as dist
+    from repro_torch.runtime.elastic import make_elastic_mesh
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        yield make_elastic_mesh(1, device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_one_rank_nccl_mesh_runs_the_unsharded_operations(nccl_mesh):
+    """chip_smoke.py's phase 13 at the smoke config: granite-8b placed by
+    ``prefill_cell``'s placements on the (1, 1) mesh, a flash prefill
+    (one wgmma launch a layer, through ``local_map``) and two decode
+    steps under the rules equal to the same run without them within
+    1e-3, and a training step's loss and grad norm within 1e-4."""
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as M
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as SH, specs as SP
+    from repro_torch.runtime.steps import TrainHParams, build_train_step
+    cfg = C.get_smoke("granite-8b")
+    assert nccl_mesh.shape == (1, 1)
+    rules = SP.cell_rules(cfg, ShapeConfig("p", 32, 2, "prefill"), nccl_mesh)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    placed = SP.place(rules, params, M.param_axes(cfg))
+    _, (p_shard, _), _ = SP.prefill_cell(cfg, ShapeConfig("p", 32, 2,
+                                                          "prefill"), rules)
+    SP.map_axes(lambda axes, t, want: placed_by(t, want),
+                M.param_axes(cfg), placed, p_shard)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(0))
+    with torch.inference_mode():
+        want, cache = M.prefill(params, cfg, tokens, max_seq=34, impl="flash")
+        fa.launches_sm90 = 0
+        with SH.use_rules(rules):
+            got, cache2 = M.prefill(placed, cfg, tokens, max_seq=34,
+                                    impl="flash")
+        assert fa.launches_sm90 == cfg.n_layers
+        assert float((SH.full(got) - want).abs().max()) <= 1e-3
+        tok = torch.argmax(want, -1)[:, None]
+        for i in range(2):
+            pos = torch.full((2,), 32 + i, dtype=torch.int32, device="cuda")
+            want, cache = M.decode_step(params, cfg, tok, cache, pos)
+            with SH.use_rules(rules):
+                got, cache2 = M.decode_step(placed, cfg, tok, cache2, pos)
+            assert float((SH.full(got) - want).abs().max()) <= 1e-3
+            tok = torch.argmax(want[:, 0], -1)[:, None]
+    # microbatches of two rows: the batch stays sharded (a row of one
+    # would be replicated), so the embedding's backward meets a
+    # batch-sharded gradient
+    hp = TrainHParams(n_micro=2, remat=True, remat_policy="none")
+    step = build_train_step(cfg, hp)
+    tokens = torch.cat([tokens, tokens.flip(0)])
+    batch = {"tokens": tokens.cpu(), "labels": tokens.roll(-1, 1).cpu()}
+    p32 = M.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    _, _, want = step(p32, adamw.init(p32), batch)
+    p32 = SP.place(rules, M.init_params(cfg, seed=0, device="cuda",
+                                        dtype=torch.float32),
+                   M.param_axes(cfg))
+    with SH.use_rules(rules):
+        p32, _, got = step(p32, adamw.init(p32), batch)
+    assert SH.is_dtensor(adamw.leaves(p32)[0])
+    for k in ("loss", "grad_norm"):
+        assert abs(float(got[k]) - float(want[k])) <= 1e-4 * abs(
+            float(want[k])), k
+
+
+def test_wgmma_kernel_through_local_map(nccl_mesh):
+    """DTensor q/k/v on the one-rank mesh (sharded by batch and heads)
+    reach the wgmma kernel once through ``local_map`` and give what the
+    plain call gives, bit for bit."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    q, k, v = qkv((2, 256, 256, 8, 2, 128), "bfloat16", 3, "cuda")
+    want = fa.flash_attention_bshd(q, k, v)
+    qp = [Shard(0), Shard(2)]
+    kp = [Shard(0), Replicate()]
+    dq = distribute_tensor(q, nccl_mesh, qp)
+    dk, dv = (distribute_tensor(t, nccl_mesh, kp) for t in (k, v))
+    fa.launches_sm90 = 0
+    fa.device_launches(fa.SM90, reset=True)
+    got = fa.flash_attention_bshd(dq, dk, dv)
+    assert fa.launches_sm90 == 1 and fa.device_launches(fa.SM90) == 1
+    assert list(got.placements) == qp
+    assert torch.equal(got.full_tensor(), want)
+
+
+def test_compressed_psum_over_one_nccl_rank(nccl_mesh):
+    """chip_smoke.py's phase 13 (c) at a small size: over one rank the
+    mean is the dequantized gradient, within half a quantization step of
+    it (and float32 rounding), and the error buffer is exactly what was
+    lost."""
+    from repro_torch.optim import compress
+    from repro_torch.optim.adamw import leaves
+    g = {"a": torch.randn(64, 32, device="cuda"),
+         "b": [torch.randn(7, device="cuda")]}
+    err = {"a": torch.zeros(64, 32, device="cuda"),
+           "b": [torch.zeros(7, device="cuda")]}
+    mean, new_err = compress.compressed_psum(g, err)
+    for gl, ml, el in zip(*(leaves(t) for t in (g, mean, new_err))):
+        scale = gl.abs().max() / 127.0 + 1e-12
+        # half a step, and room for the float32 rounding of g / scale and
+        # q * scale (each under 2^-17 of a step at |q| <= 127)
+        assert float((ml - gl).abs().max()) <= float(scale) * (0.5 + 2 ** -15)
+        assert torch.equal(el, gl - ml)
+
+
+def placed_by(t, placements):
+    assert list(t.placements) == list(placements)
+

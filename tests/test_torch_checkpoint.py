@@ -97,9 +97,10 @@ def test_reference_checkpoint_restores_in_the_port(tmp_path, arch):
             np.testing.assert_array_equal(got[name], a, err_msg=name)
     # landed on the one-device mesh: the port's per-layer fp32 state
     cfg = PC.get_smoke(arch)
-    params, opt = PE.reshard_state(
+    params, opt, rules = PE.reshard_state(
         cfg, by_names["params"], PA.AdamWState(o["step"], o["m"], o["v"]),
         PE.make_elastic_mesh(device="cpu"))
+    assert rules is None          # no rules on the one-device record
     assert opt.step == 1 and isinstance(opt.step, int)
     assert len(params["layers"]) == cfg.n_layers
     assert all(t.dtype == torch.float32 for t in PA.leaves(params))

@@ -393,9 +393,10 @@ def test_reference_checkpoint_restores_in_the_port(tmp_path):
     names = PCk.restore_checkpoint(None, 5, str(tmp_path))
     o = names["opt"]
     cfg = PC.get_smoke(ARCH)
-    params, opt = PE.reshard_state(
+    params, opt, rules = PE.reshard_state(
         cfg, names["params"], PA.AdamWState(o["step"], o["m"], o["v"]),
         PE.make_elastic_mesh(device="cpu"))
+    assert rules is None          # no rules on the one-device record
     assert len(params["enc_layers"]) == cfg.n_encoder_layers
     assert "xattn" in params["layers"][0]
     got, want = flat(as_ref_layout(cfg, params, opt)), flat(tree)

@@ -60,7 +60,10 @@ def test_every_port_module_is_listed():
                  "repro_torch.runtime.straggler",
                  "repro_torch.runtime.elastic",
                  "repro_torch.runtime.train_loop",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train",
+                 "repro_torch.runtime.sharding",
+                 "repro_torch.runtime.specs", "repro_torch.launch.mesh",
+                 "repro_torch.optim.compress", "repro_torch.kernels.ref"):
         assert want in names
 
 

@@ -52,12 +52,13 @@ def close(port, ref, **tol):
 
 
 def layout_weights(layout, rng, path=""):
-    """Seeded float32 numpy weights for a port layout (shape, std); zero
-    std leaves (norms, biases) get small nonzero values so they count."""
+    """Seeded float32 numpy weights for a port layout (shape, axes,
+    std); zero std leaves (norms, biases) get small nonzero values so they
+    count."""
     if isinstance(layout, dict):
         return {k: layout_weights(v, rng, f"{path}/{k}")
                 for k, v in layout.items()}
-    shape, std = layout
+    shape, _axes, std = layout
     return (rng.standard_normal(shape, dtype=np.float32)
             * np.float32(std or 0.1))
 

@@ -1,0 +1,144 @@
+"""The sharded cases of tests/test_torch_sharding.py, on four gloo ranks
+of a 2x2 ``(data, model)`` mesh (one spawn; ``torch_ranks``):
+
+- ``loss``: granite-8b smoke's loss on the reference's inputs, the
+  weights from ``inputs.npz`` (the reference's layout), unsharded and
+  under ``cell_rules`` on the mesh;
+- ``train``: one qwen2.5-14b smoke training step (``n_micro=2``,
+  blockwise attention) unsharded and sharded: metrics, and whether the
+  parameters stay DTensors with their axes' placements;
+- ``gqa``: a flash-impl prefill (the plain version on the CPU) and two
+  decode steps in float32, for head counts whose local q heads do not
+  cover whole kv groups, unsharded and sharded.
+
+    python tests/torch_ranks_sharding.py <workdir>
+"""
+
+from __future__ import annotations
+
+import math
+import sys
+
+import torch_ranks
+
+
+def _max_diff(a, b) -> float:
+    from repro_torch.runtime.sharding import full
+    return float((full(a).float() - b.float()).abs().max())
+
+
+def loss_case(mesh, inputs) -> dict:
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.runtime import sharding as SH, specs as SP
+    cfg = C.get_smoke("granite-8b")
+    params = T.params_from_jax(torch_ranks.unflatten(inputs, "granite/"),
+                               device="cpu")
+    tokens = torch.from_numpy(inputs["granite_tokens"])
+    labels = torch.roll(tokens, -1, 1)
+    with torch.no_grad():
+        plain = float(T.loss_fn(params, cfg, tokens, labels)[0])
+        rules = SP.cell_rules(cfg, ShapeConfig("t", 16, 4, "train"), mesh)
+        placed = SP.place(rules, params, T.param_axes(cfg))
+        with SH.use_rules(rules):
+            sharded = float(SH.full(T.loss_fn(placed, cfg, tokens,
+                                              labels)[0]))
+    return {"plain": plain, "sharded": sharded}
+
+
+def train_case(mesh, inputs) -> dict:
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as SH, specs as SP
+    from repro_torch.runtime.steps import TrainHParams, build_train_step
+    cfg = C.get_smoke("qwen2.5-14b")
+    step = build_train_step(cfg, TrainHParams(n_micro=2,
+                                              attn_impl="blockwise"))
+    batch = {"tokens": inputs["qwen_tokens"], "labels": inputs["qwen_labels"]}
+
+    def weights():
+        return T.params_from_jax(torch_ranks.unflatten(inputs, "qwen/"),
+                                 device="cpu", dtype=torch.float32)
+
+    params = weights()
+    _, _, plain = step(params, adamw.init(params), batch)
+    rules = SP.cell_rules(cfg, ShapeConfig("t", 16, 4, "train"), mesh)
+    params = SP.place(rules, weights(), T.param_axes(cfg))
+    with SH.use_rules(rules):
+        params, opt, sharded = step(params, adamw.init(params), batch)
+    placed = []
+    SP.map_axes(lambda axes, p, m: placed.append(
+        SH.is_dtensor(p) and SH.is_dtensor(m)
+        and list(p.placements) == rules.placements(axes)
+        and list(m.placements) == rules.placements(axes)),
+        T.param_axes(cfg), params, opt.m)
+    finite = all(math.isfinite(float(sharded[k]))
+                 for k in ("loss", "grad_norm", "lr"))
+    return {"plain": {k: float(v) for k, v in plain.items()},
+            "sharded": {k: float(v) for k, v in sharded.items()},
+            "finite": finite, "placed": all(placed),
+            "leaves": len(placed)}
+
+
+def gqa_case(mesh, inputs) -> dict:
+    """Prefill (flash impl: the kernel's plain version on the CPU) and
+    two decode steps in float32, unsharded and sharded, for (H, KV) =
+    (12, 3) (rank r of tp 2 holds q heads 6r..6r+5, which read kv heads
+    0,0,0,0,1,1 and 1,1,2,2,2,2: one kv head a q head) and (8, 2) (rank
+    r's four q heads read kv head r: a slice).  The decode caches'
+    slots are split over the model axis, so decode merges the ranks'
+    softmax parts."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ModelConfig, ShapeConfig
+    from repro_torch.runtime import sharding as SH, specs as SP
+    out = {}
+    T.COMPUTE_DTYPE = torch.float32
+    for H, KV in ((12, 3), (8, 2)):
+        cfg = ModelConfig(arch_id=f"gqa-{H}-{KV}", family="dense",
+                          n_layers=2, d_model=64, n_heads=H, n_kv_heads=KV,
+                          head_dim=16, d_ff=128, vocab_size=256)
+        params = T.init_params(cfg, seed=H, device="cpu",
+                               dtype=torch.float32)
+        tokens = torch.from_numpy(inputs["gqa_tokens"])
+        B, S = tokens.shape
+        rules = SP.cell_rules(cfg, ShapeConfig("p", S, B, "prefill"), mesh)
+        placed = SP.place(rules, params, T.param_axes(cfg))
+        diffs = []
+        with torch.no_grad():
+            want, cache = T.prefill(params, cfg, tokens, max_seq=S + 4,
+                                    impl="flash")
+            with SH.use_rules(rules):
+                got, dcache = T.prefill(placed, cfg, tokens, max_seq=S + 4,
+                                        impl="flash")
+            diffs.append(_max_diff(got, want))
+            tok = torch.argmax(want, -1)[:, None]
+            for i in range(2):
+                pos = torch.full((B,), S + i, dtype=torch.int32)
+                want, cache = T.decode_step(params, cfg, tok, cache, pos)
+                with SH.use_rules(rules):
+                    got, dcache = T.decode_step(placed, cfg, tok, dcache,
+                                                pos)
+                diffs.append(_max_diff(got, want))
+                tok = torch.argmax(want[:, 0], -1)[:, None]
+        out[f"{H}:{KV}"] = {
+            "diffs": diffs,
+            "cache_shard_dims": [p.dim if p.is_shard() else None
+                                 for p in dcache[0]["k"].placements],
+            "cache_diff": _max_diff(dcache[0]["k"], cache[0]["k"])}
+    return out
+
+
+def cases(rank, mesh, inputs, workdir) -> dict:
+    return {"loss": loss_case(mesh, inputs),
+            "train": train_case(mesh, inputs),
+            "gqa": gqa_case(mesh, inputs)}
+
+
+if __name__ == "__main__":
+    torch_ranks.rank_main(cases, sys.argv[1])
