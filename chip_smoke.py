@@ -136,13 +136,39 @@ Phases, in order; any failed check exits nonzero and prints no result:
             peak memory beside phase 8's; (c) ``compressed_psum`` over the
             one rank on the gradients of one more step, leaf by leaf:
             every mean within half a quantization step of the gradient,
-            the error buffer exactly what was lost; the payload's bytes.
+            the error buffer exactly what was lost; the payload's bytes;
+14. roofline the cost models (no kernel launched): (a) the port's dry
+            run (``launch.dryrun.run_cell``) on a fake 16x16 mesh of 256
+            ranks on this host, meta tensors only: granite-8b's
+            decode_32k and prefill_32k traced whole at full width and
+            depth, with their probes, whose FLOP prediction must hold
+            within 1 % of the whole trace, and train_4k by its probes
+            alone (its 16 microbatches of 36 layers take minutes to
+            trace whole); then the prefill_32k of qwen3-moe-30b-a3b,
+            mamba2-780m, pixtral-12b and whisper-small, and the
+            decode_32k of mamba2-780m and jamba-v0.1-52b (the SSD
+            decode step on heads sharded 16 ways); a prefill traced
+            whole in the probes' coarse attention grid (the same FLOPs
+            and collectives, fewer bytes), a decode in the step's own;
+            every cell traced and ``ok``; per-device FLOPs, bytes,
+            collective bytes, the rank's peak memory beside the card's
+            and the dominant roofline term; (b) the one-card bound of
+            every measured prefill and decode step of phases 5 and 9-12
+            and of phase 8's training step: model FLOPs (6 N_active a
+            token to train, 2 N_active to serve) and
+            ``estimate_hbm_bytes(n_dev=1)`` at the phase's own shape
+            over the data sheet's 989 TFLOP/s and 3.35 TB/s, which must
+            not exceed the measured time, and the model-FLOP share of
+            each; (c) the card's own rates: a bf16 8192^3 product and a
+            4 GiB copy timed with CUDA events, neither above 105 % of
+            the data sheet.
 
 Then a JSON line of serve numbers, one of wire numbers, one of activity
 numbers, one of training numbers, one of MoE serving numbers, one of SSD
 serving numbers, one of VLM serving numbers, one of audio serving
-numbers, one of mesh numbers, one of kernels, the card's ``nvidia-smi``
-line, and the result line ``{"ok": true, "device": {...}}`` last.  Imports nothing of
+numbers, one of mesh numbers, one of roofline numbers, one of kernels,
+the card's ``nvidia-smi`` line, and the result line ``{"ok": true,
+"device": {...}}`` last.  Imports nothing of
 JAX, of the reference package or of msgpack.
 """
 
@@ -303,6 +329,31 @@ MESH_LOSS_TOL = 1e-4
 MESH_TIMED_STEPS = 3
 #: half a quantization step, and float32 rounding room
 COMPRESS_HALF_STEP = 0.5 + 2 ** -15
+#: phase 14 (a): the dry-run cells on the fake 16x16 mesh, every one
+#: traced: (arch, shape, traced whole, with probes, whole in the probes'
+#: coarse attention grid).  A prefill is traced whole in the coarse grid
+#: (8 x 8 blocks a layer; the step's own 64 x 32 would take granite-8b's
+#: some 4 minutes of host): the same FLOPs and collectives, fewer
+#: bytes.  granite-8b's train_4k by its probes alone (16 microbatches of
+#: 36 layers take some 9 minutes to trace whole).  The decode cells are
+#: traced whole in the step's grid; mamba2's and jamba's run the SSD
+#: decode on heads sharded 16 ways.
+DRYRUN_CELLS = (("granite-8b", "decode_32k", True, True, False),
+                ("granite-8b", "prefill_32k", True, True, True),
+                ("granite-8b", "train_4k", False, True, True),
+                (MOE_ARCH, "prefill_32k", True, False, True),
+                (SSM_ARCH, "prefill_32k", True, False, True),
+                (VLM_ARCH, "prefill_32k", True, False, True),
+                (AUDIO_ARCH, "prefill_32k", True, False, True),
+                (SSM_ARCH, "decode_32k", True, False, False),
+                ("jamba-v0.1-52b", "decode_32k", True, False, False))
+#: the probe model's FLOPs against the whole trace (relative)
+DRYRUN_PROBE_TOL = 0.01
+#: (c): the bf16 product's side, the copy's bytes, and how far above the
+#: data sheet a measured rate may read
+RATE_MATMUL_N = 8192
+RATE_COPY_BYTES = 4 << 30
+RATE_CEILING = 1.05
 DEVICE = torch.device("cuda")
 #: what phases 5 and 8 keep for phase 13 to compare with
 HELD: dict = {}
@@ -2102,8 +2153,8 @@ def train_phase(seed: int, smi: str) -> dict:
         "grad_norms": norms, "lrs": [m["lr"] for _s, m in got],
         "step_ms": [t * 1e3 for t in timed], "step_ms_median": step_s * 1e3,
         "tokens_per_s": tokens / step_s,
-        "model_flop_share_bf16": 6 * n_params * tokens / step_s
-        / BF16_FLOP_PER_S,
+        "model_flop_share_bf16": M.model_flops_per_token(cfg) * tokens
+        / step_s / BF16_FLOP_PER_S,
         "profiled_step_ms": prof_ms, "device_busy_ms": busy_ms,
         "idle_share": 1 - busy_ms / prof_ms, "peak_memory_gb": peak_gb,
         "optimizer_ms": opt_ms, "device_ms_by_class": by_class,
@@ -3200,6 +3251,171 @@ def mesh_phase(seed: int, smi: str, sv: dict, tr: dict) -> dict:
     return out
 
 
+# ---------------------------------------------- phase 14: the cost models
+def dryrun_cell(arch: str, shape: str, full: bool, probes: bool,
+                coarse: bool, total_b: int, smi: str) -> dict:
+    """One cell of the port's dry run on the fake 16x16 mesh, its record
+    and the lines it prints."""
+    import tempfile
+    from repro_torch.launch import dryrun as D
+    with tempfile.TemporaryDirectory() as d:
+        r = D.run_cell(arch, shape, "single", d, device="cuda", full=full,
+                       probes=probes, coarse=coarse)
+    check(r["status"] == "ok", f"roofline: dry run of {arch} {shape}: "
+          f"{r['status']} {r.get('reason', '')}")
+    out = {k: r[k] for k in (
+        "arch", "shape", "n_devices", "n_micro", "full_trace",
+        "flops_per_device", "bytes_per_device",
+        "collective_bytes_per_device", "collective_bw",
+        "model_flops_ratio", "dominant", "compute_s", "memory_s",
+        "collective_s", "step_time_lower_bound_s", "memory",
+        "attention_grid", "compile_wall_s")}
+    out["raw"], out["corrected"] = r["raw"], r.get("corrected")
+    out["probe_walls_s"] = r.get("probe_walls_s")
+    if full and probes:
+        out["probe_flops_rel_err"] = (abs(r["corrected"]["flops"]
+                                          - r["raw"]["flops"])
+                                      / r["raw"]["flops"])
+    peak = r["memory"]["peak_bytes"]
+    how = (f"whole trace in the {r['attention_grid']} attention grid"
+           if full else "probes alone, in the coarse attention grid")
+    whose = "rank" if full else "the deepest probe's"
+    log(f"roofline: {arch} {shape} on 256 ranks ({how}"
+        f"{' and probes' if full and probes else ''}, {r['compile_wall_s']} "
+        f"s): per device {r['flops_per_device']:.6g} FLOPs, "
+        f"{r['bytes_per_device']:.6g} bytes, "
+        f"{r['collective_bytes_per_device']:.6g} collective bytes; "
+        f"{whose} peak {peak / 1e9:.3f} GB of the card's "
+        f"{total_b / 1e9:.3f} GB; "
+        f"dominant {r['dominant']} ({r['step_time_lower_bound_s']:.6g} s at "
+        f"989 TFLOP/s, 3.35 TB/s, {r['collective_bw'] / 1e9:.0f} GB/s a "
+        f"link); model/traced FLOPs {r['model_flops_ratio']:.4f} [{smi}]")
+    return out
+
+
+def one_card_bound(cfg, shape, n_micro: int, measured_ms: float) -> dict:
+    """The least time one card could take for a step of ``shape``: model
+    FLOPs over the bf16 peak, or ``estimate_hbm_bytes`` on one device
+    over HBM's rate, whichever is larger; and the model-FLOP share of the
+    measured time."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.hlo_analysis import roofline
+    from repro_torch.launch.roofline_model import estimate_hbm_bytes
+    from repro_torch.models.transformer import model_flops_per_token
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
+                                   else 1)
+    per_tok = model_flops_per_token(cfg)
+    if shape.kind != "train":
+        per_tok /= 3.0
+    flops = per_tok * tokens
+    hbm = estimate_hbm_bytes(cfg, shape, n_dev=1, dp=1, tp=1,
+                             n_micro=n_micro)
+    rf = roofline(flops, hbm, 0.0, peak_flops=BF16_FLOP_PER_S,
+                  hbm_bw=HBM_BYTES_PER_S, ici_bw=M.NETWORK_BW)
+    bound_ms = rf["step_time_lower_bound_s"] * 1e3
+    return {"model_flops": flops, "hbm_bytes": hbm, "bound_ms": bound_ms,
+            "bound_by": "operations" if rf["dominant"] == "compute_s"
+            else "bytes", "measured_ms": measured_ms,
+            "bound_share": bound_ms / measured_ms,
+            "model_flop_share_bf16": flops / (measured_ms / 1e3)
+            / BF16_FLOP_PER_S}
+
+
+def measured_rates(smi: str) -> dict:
+    """The card's bf16 product and copy rates by CUDA events, beside the
+    data sheet's."""
+    n = RATE_MATMUL_N
+    a = torch.randn(n, n, dtype=torch.bfloat16, device=DEVICE)
+    b = torch.randn(n, n, dtype=torch.bfloat16, device=DEVICE)
+    mm_ms = cuda_median_ms(lambda: torch.matmul(a, b), runs=20)
+    del a, b
+    src = torch.empty(RATE_COPY_BYTES, dtype=torch.uint8, device=DEVICE)
+    dst = torch.empty_like(src)
+    copy_ms = cuda_median_ms(lambda: dst.copy_(src), runs=10)
+    del src, dst
+    torch.cuda.empty_cache()
+    out = {"matmul_ms": mm_ms,
+           "matmul_flop_per_s": 2 * n ** 3 / (mm_ms / 1e3),
+           "copy_ms": copy_ms,
+           # each byte read once and written once
+           "copy_bytes_per_s": 2 * RATE_COPY_BYTES / (copy_ms / 1e3)}
+    log(f"roofline: measured bf16 {n}^3 product {mm_ms:.4f} ms = "
+        f"{out['matmul_flop_per_s'] / 1e12:.2f} TFLOP/s (data sheet "
+        f"{BF16_FLOP_PER_S / 1e12:.0f}); a {RATE_COPY_BYTES >> 30} GiB copy "
+        f"{copy_ms:.4f} ms = {out['copy_bytes_per_s'] / 1e12:.4f} TB/s read "
+        f"+ written (data sheet {HBM_BYTES_PER_S / 1e12:.2f}) [{smi}]")
+    check(out["matmul_flop_per_s"] <= RATE_CEILING * BF16_FLOP_PER_S,
+          f"roofline: the bf16 product reads {out['matmul_flop_per_s']:.4g} "
+          f"FLOP/s, above {RATE_CEILING} x the data sheet")
+    check(out["copy_bytes_per_s"] <= RATE_CEILING * HBM_BYTES_PER_S,
+          f"roofline: the copy reads {out['copy_bytes_per_s']:.4g} B/s, "
+          f"above {RATE_CEILING} x the data sheet")
+    return out
+
+
+def roofline_phase(smi: str, measured: dict) -> dict:
+    """Phase 14: (a) the dry run on the fake 16x16 mesh, (b) the one-card
+    bound of each measured step of phases 5 and 8-12, (c) the card's
+    rates.  ``measured`` maps a phase's tag to its record."""
+    from repro_torch import configs as C
+    from repro_torch.kernels import flash_attention as fa, stream_ops
+    from repro_torch.models.config import ShapeConfig
+    # the phase's own counts, from 0 (it must launch no kernel)
+    fa.launches = fa.launches_sm90 = fa.launches_simt = 0
+    stream_ops.launches = 0
+    total_b = torch.cuda.get_device_properties(0).total_memory
+    out = {"cells": []}
+    t0 = time.perf_counter()
+    for arch, shape, full, probes, coarse in DRYRUN_CELLS:
+        cell = dryrun_cell(arch, shape, full, probes, coarse, total_b, smi)
+        if full and probes:
+            check(cell["probe_flops_rel_err"] <= DRYRUN_PROBE_TOL,
+                  f"roofline: {arch} {shape}: the probe model's FLOPs are "
+                  f"{cell['probe_flops_rel_err']:.3g} off the whole trace")
+        out["cells"].append(cell)
+    out["dryrun_s"] = time.perf_counter() - t0
+
+    bounds = []
+    for tag, arch, prompt in (("serve", SERVE_ARCH, SERVE_P),
+                              ("moe", MOE_ARCH, SERVE_P),
+                              ("ssm", SSM_ARCH, SERVE_P),
+                              ("vlm", VLM_ARCH, SERVE_P),
+                              ("audio", AUDIO_ARCH, AUDIO_P)):
+        cfg, res = C.get_config(arch), measured[tag]
+        for kind, seq, ms in (
+                ("prefill", prompt, res["prefill_ms"]),
+                # decode reads the whole cache: prompt + generated slots
+                ("decode", prompt + SERVE_G, res["decode_ms_per_step"])):
+            bounds.append({"phase": tag, "arch": arch, "kind": kind,
+                           **one_card_bound(cfg, ShapeConfig(
+                               kind, seq, SERVE_B, kind), 1, ms)})
+    tr = measured["train"]
+    bounds.append({"phase": "train", "arch": TRAIN_ARCH, "kind": "train",
+                   **one_card_bound(C.get_config(TRAIN_ARCH), ShapeConfig(
+                       "train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                       TRAIN_HP["n_micro"], tr["step_ms_median"])})
+    for b in bounds:
+        log(f"roofline: {b['phase']} {b['arch']} {b['kind']}: one-card "
+            f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+            f"({b['model_flops']:.6g} model FLOPs, {b['hbm_bytes']:.6g} "
+            f"bytes) against {b['measured_ms']:.4f} ms measured "
+            f"({100 * b['bound_share']:.3f} %); model-FLOP share "
+            f"{100 * b['model_flop_share_bf16']:.4f} % of 989 TFLOP/s "
+            f"[{smi}]")
+        check(b["bound_ms"] <= b["measured_ms"],
+              f"roofline: {b['phase']} {b['kind']}: the bound "
+              f"{b['bound_ms']:.4f} ms exceeds the measured "
+              f"{b['measured_ms']:.4f} ms")
+    out["one_card"] = bounds
+    out["rates"] = measured_rates(smi)
+    out["launches"] = {"fid_slots": stream_ops.launches,
+                       fa.SM90: fa.launches_sm90, fa.SIMT: fa.launches_simt}
+    check(not any(out["launches"].values()) and fa.launches == 0,
+          f"roofline: the phase launched {out['launches']}")
+    out["device"] = smi
+    return out
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3257,6 +3473,8 @@ def main() -> int:
                             audio.n_encoder_layers + audio.n_layers,
                             audio.n_encoder_layers, "audio", args.seed, smi)
     ms = mesh_phase(args.seed, smi, sv, tr)
+    rl = roofline_phase(smi, {"serve": sv, "moe": mo, "ssm": sm, "vlm": vl,
+                              "audio": au, "train": tr})
     at = k["sizes"][BATCH]
     kernels = {"kernels": [{
         "name": "fid_slots",
@@ -3277,6 +3495,7 @@ def main() -> int:
         "vlm_launches": vl["fid_slots_launches"],
         "audio_launches": au["fid_slots_launches"],
         "mesh_launches": ms["serve"]["fid_slots_launches"],
+        "roofline_launches": rl["launches"]["fid_slots"],
         "max_abs_err": k["max_abs_err"],
         "ms": at["ms"], "plain_ms": at["plain_ms"],
         "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
@@ -3310,7 +3529,8 @@ def main() -> int:
                               "vlm": vl["attention_launches"][kernel],
                               "audio": au["attention_launches"][kernel],
                               "mesh": ms["serve"]["attention_launches"][
-                                  kernel]},
+                                  kernel],
+                              "roofline": rl["launches"][kernel]},
         # phase 13's sharded serving run, through local_map, counted from 0
         "mesh_launches": ms["serve"]["attention_launches"][kernel],
         # of them, the audio phase's encoder layers, with no causal mask
@@ -3346,6 +3566,7 @@ def main() -> int:
     print(json.dumps({"vlm": vl}), flush=True)
     print(json.dumps({"audio": au}), flush=True)
     print(json.dumps({"mesh": ms}), flush=True)
+    print(json.dumps({"roofline": rl}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

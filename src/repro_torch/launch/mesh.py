@@ -43,3 +43,10 @@ HBM_BW = 3.35e12
 NVLINK_BW = 450e9
 # cards a host joins all to all by NVLink
 CHIPS_PER_HOST = 8
+# NVIDIA DGX H100: one ConnectX-7 400 Gb/s port a card between hosts,
+# 50e9 bytes/s a direction per card (data sheet; not measured).  The
+# dry run's collective term divides by it: every axis of either
+# production mesh spans hosts (the 16-rank ``model`` axis two hosts of
+# CHIPS_PER_HOST, ``data`` sixteen), and a ring over ranks of several
+# hosts runs at the rate of the links between them
+NETWORK_BW = 50e9

@@ -29,14 +29,16 @@ launches no kernel.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-from ..runtime.sharding import (axis_size, is_dtensor, keep_whole, like,
-                                lshard, map_local_heads)
+from ..runtime.sharding import (at_use, axis_size, is_dtensor, keep_whole,
+                                like, lshard, map_local_heads, shard_block)
 from .config import ModelConfig
 
 DEFAULT_BLOCK_Q = 512
@@ -53,7 +55,7 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * (1.0 + w.float())).to(dt)
+    return (x * (1.0 + at_use(w, torch.float32))).to(dt)
 
 
 def rms_norm_gated(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
@@ -142,6 +144,24 @@ def attention_core_naive(q, k, v, q_pos, k_pos, *, causal=True, window=0,
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
+_grid = threading.local()
+
+
+@contextlib.contextmanager
+def coarse_blocks():
+    """While active (in this thread), blockwise attention takes blocks of
+    at least an eighth of each sequence: the reference's probe mode
+    (``UNROLL_BLOCKS``), for a trace that counts every block.  The same
+    FLOPs (every block is computed, masked or not) in at most 8 x 8
+    blocks."""
+    prev = getattr(_grid, "coarse", False)
+    _grid.coarse = True
+    try:
+        yield
+    finally:
+        _grid.coarse = prev
+
+
 def attention_core_blockwise(q, k, v, q_pos, k_pos, *, causal=True, window=0,
                              cap=0.0, scale=None, block_q=DEFAULT_BLOCK_Q,
                              block_k=DEFAULT_BLOCK_K):
@@ -156,6 +176,9 @@ def attention_core_blockwise(q, k, v, q_pos, k_pos, *, causal=True, window=0,
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     scale = scale or D ** -0.5
+    if getattr(_grid, "coarse", False):
+        block_q = max(block_q, -(-Sq // 8))
+        block_k = max(block_k, -(-Sk // 8))
     block_q = min(block_q, Sq)
     block_k = min(block_k, Sk)
     nq = -(-Sq // block_q)
@@ -243,18 +266,34 @@ def _split_heads(x, n: int, hd: int):
 
 def _proj_qkv(p, x, cfg: ModelConfig, rope: bool, positions):
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
+    q = x @ at_use(p["wq"], x.dtype)
+    k = x @ at_use(p["wk"], x.dtype)
+    v = x @ at_use(p["wv"], x.dtype)
     if "bq" in p:
-        q, k, v = (q + p["bq"].to(x.dtype), k + p["bk"].to(x.dtype),
-                   v + p["bv"].to(x.dtype))
+        q, k, v = (q + at_use(p["bq"], x.dtype), k + at_use(p["bk"], x.dtype),
+                   v + at_use(p["bv"], x.dtype))
     q, k, v = (_split_heads(q, H, hd), _split_heads(k, KV, hd),
                _split_heads(v, KV, hd))
     if rope and cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _pad(x, pad):
+    """``F.pad`` of trailing dimensions; a DTensor is padded shard by shard
+    (``local_map``) once no rank splits a padded dimension: torch 2.11's
+    DTensor cannot plan a pad's redistribution."""
+    if not is_dtensor(x):
+        return F.pad(x, pad)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    padded = range(x.ndim - len(pad) // 2, x.ndim)
+    pl = [Replicate() if isinstance(p, Shard) and p.dim % x.ndim in padded
+          else p for p in x.placements]
+    x = x.redistribute(x.device_mesh, pl)
+    return local_map(lambda t: F.pad(t, pad), out_placements=pl,
+                     in_placements=(pl,), device_mesh=x.device_mesh)(x)
 
 
 def pad_heads_for_tp(q, k, v):
@@ -280,12 +319,12 @@ def pad_heads_for_tp(q, k, v):
     if KV * GA <= KVB * G:           # pad fan-out within each kv group
         B_, S, _, D = q.shape
         qg = q.reshape(B_, S, KV, G, D)
-        qg = F.pad(qg, (0, 0, 0, GA - G))
+        qg = _pad(qg, (0, 0, 0, GA - G))
         return qg.reshape(B_, S, KV * GA, D), k, v, H
     # pad whole kv groups (adds zero kv heads and their zero q heads)
-    q2 = F.pad(q, (0, 0, 0, (KVB - KV) * G))
-    k2 = F.pad(k, (0, 0, 0, KVB - KV))
-    v2 = F.pad(v, (0, 0, 0, KVB - KV))
+    q2 = _pad(q, (0, 0, 0, (KVB - KV) * G))
+    k2 = _pad(k, (0, 0, 0, KVB - KV))
+    v2 = _pad(v, (0, 0, 0, KVB - KV))
     return q2, k2, v2, H
 
 
@@ -318,7 +357,7 @@ def attention_layer(p, x, cfg: ModelConfig, *, positions, window=0,
     out = run_attention(q, k, v, positions, positions, cfg, causal=True,
                         window=window, impl=impl)
     out = out.reshape(*x.shape[:-1], -1)
-    return out @ p["wo"].to(x.dtype)
+    return out @ at_use(p["wo"], x.dtype)
 
 
 def cross_attention_layer(p, x, enc_kv, cfg: ModelConfig):
@@ -327,7 +366,7 @@ def cross_attention_layer(p, x, enc_kv, cfg: ModelConfig):
     (B, F, KV, hd).  Every position sees every frame (zero positions, no
     mask); plain PyTorch (``naive``), as in the reference."""
     H, hd = cfg.n_heads, cfg.resolved_head_dim
-    q = _split_heads(x @ p["wq"].to(x.dtype), H, hd)
+    q = _split_heads(x @ at_use(p["wq"], x.dtype), H, hd)
     k, v = enc_kv
     B, Sq = q.shape[0], q.shape[1]
     q_pos = torch.zeros(B, Sq, dtype=torch.int32, device=x.device)
@@ -335,7 +374,7 @@ def cross_attention_layer(p, x, enc_kv, cfg: ModelConfig):
     out = run_attention(q, k, v, q_pos, k_pos, cfg, causal=False,
                         impl="naive")
     out = out.reshape(*x.shape[:-1], -1)
-    return out @ p["wo"].to(x.dtype)
+    return out @ at_use(p["wo"], x.dtype)
 
 
 def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig,
@@ -365,7 +404,7 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig,
             _decode_k_pos(pos, 0, S_slot, S_slot, window), causal=True,
             window=0, cap=cfg.attn_softcap)
     out = out.reshape(B, 1, -1)
-    return out @ p["wo"].to(x.dtype), cache_k, cache_v
+    return out @ at_use(p["wo"], x.dtype), cache_k, cache_v
 
 
 def _is_ring(window: int, n_slots: int) -> bool:
@@ -427,10 +466,7 @@ def _decode_dtensor(q, k, v, cache_k, cache_v, pos, *, window, cap):
     bp = [Shard(0) if p == Shard(0) else Replicate() for p in cp]
     seq_dims = [i for i, p in enumerate(cp) if p == Shard(1)]
     S_slot = cache_k.shape[1]
-    block, n_seq = 0, 1
-    for i in seq_dims:
-        block = block * mesh.size(i) + mesh.get_local_rank(i)
-        n_seq *= mesh.size(i)
+    block, n_seq = shard_block(mesh, cp, 1)
     if S_slot % n_seq:
         raise ValueError(f"{S_slot} cache slots do not split evenly over "
                          f"{n_seq} ranks")
@@ -498,10 +534,10 @@ def _act(x, kind: str):
 
 
 def mlp_layer(p, x, cfg: ModelConfig):
-    h = _act(x @ p["w_gate"].to(x.dtype), cfg.act) * \
-        (x @ p["w_up"].to(x.dtype))
+    h = _act(x @ at_use(p["w_gate"], x.dtype), cfg.act) * \
+        (x @ at_use(p["w_up"], x.dtype))
     h = lshard(h, "batch", "seq", "mlp")
-    return h @ p["w_down"].to(x.dtype)
+    return h @ at_use(p["w_down"], x.dtype)
 
 
 # ----------------------------------------------------------------------- MoE
@@ -568,6 +604,49 @@ def route_slots(top_e: torch.Tensor, top_p: torch.Tensor, n_experts: int,
     return pos, keep
 
 
+def _route_rows(logits, K: int, capacity: int):
+    """The router's work that stays within each batch row: the fp32
+    softmax, top-k renormalised, the experts' choice counts over these
+    rows, and each slot's place in the capacity."""
+    E = logits.shape[-1]
+    probs = torch.softmax(logits.float(), dim=-1)
+    sorted_p, sorted_e = torch.sort(probs, dim=-1, descending=True,
+                                    stable=True)
+    top_p, top_e = sorted_p[..., :K], sorted_e[..., :K]
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    # counts by scatter-add, not ``bincount``, which waits on the device
+    # for its input's max; integer counts are exact in fp32 in any order
+    counts = torch.zeros(E, device=logits.device).scatter_add_(
+        0, top_e.reshape(-1), torch.ones(top_e.numel(),
+                                         device=logits.device))
+    pos, keep = route_slots(top_e, top_p, E, capacity)
+    return probs, top_p, top_e, pos, keep, counts
+
+
+def _batch_local(fn, out_placements, *xs):
+    """``fn`` on each rank's batch rows, through ``local_map``: ``xs`` are
+    ``(tensor, batch_dim)`` pairs, each redistributed so that only its
+    batch dimension stays sharded, as the first one's is;
+    ``out_placements`` maps that placement list of the batch
+    (``Shard(0)`` on the mesh dimensions that shard it) to the outputs'
+    placements.  It reads no rules: a layer recomputed in the backward
+    pass runs on autograd's thread, where none are set."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    t0, d0 = xs[0]
+    mesh = t0.device_mesh
+    bp = [Shard(0) if p == Shard(d0) else Replicate() for p in t0.placements]
+
+    def at(dim):
+        return [Shard(dim) if p == Shard(0) else p for p in bp]
+
+    ins = tuple(like(t, t0).redistribute(mesh, at(d)) for t, d in xs)
+    run = local_map(fn, out_placements=out_placements(bp),
+                    in_placements=tuple(at(d) for _, d in xs),
+                    device_mesh=mesh)
+    return run(*ins)
+
+
 def moe_route(p, x, cfg: ModelConfig, capacity: int) -> MoeRoute:
     """Softmax router in fp32, top-k renormalised, the Switch aux loss,
     and each slot's place in a capacity of ``capacity`` per expert.
@@ -575,23 +654,36 @@ def moe_route(p, x, cfg: ModelConfig, capacity: int) -> MoeRoute:
     Top-k is the first K of a stable descending sort: on equal
     probabilities the lower expert index comes first, as ``lax.top_k``
     gives it (``torch.topk`` breaks such ties otherwise, and bf16 router
-    logits tie often)."""
+    logits tie often).  On DTensors the rows' work runs on each rank's
+    batch rows (``local_map``), the counts summed over the ranks."""
     E, K = cfg.n_experts, cfg.top_k
-    logits = x @ p["w_router"].to(x.dtype)
-    probs = torch.softmax(logits.float(), dim=-1)
-    sorted_p, sorted_e = torch.sort(probs, dim=-1, descending=True,
-                                    stable=True)
-    top_p, top_e = sorted_p[..., :K], sorted_e[..., :K]
-    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    logits = x @ at_use(p["w_router"], x.dtype)
+    if is_dtensor(logits):
+        from torch.distributed.tensor import Partial, Replicate
+        probs, top_p, top_e, pos, keep, counts = _batch_local(
+            lambda lg: _route_rows(lg, K, capacity),
+            lambda bp: (bp,) * 5 + (
+                [Partial() if b != Replicate() else b for b in bp],),
+            (logits, 0))
+    else:
+        probs, top_p, top_e, pos, keep, counts = _route_rows(
+            logits, K, capacity)
     me = probs.mean(dim=(0, 1))
-    # counts by scatter-add, not ``bincount``, which waits on the device
-    # for its input's max; integer counts are exact in fp32 in any order
-    ce = torch.zeros(E, device=x.device).scatter_add_(
-        0, top_e.reshape(-1), torch.ones(top_e.numel(), device=x.device)) \
-        / max(top_e.numel(), 1)
+    ce = counts / max(top_e.numel(), 1)
     aux = cfg.router_aux_coef * E * torch.sum(me * ce)
-    pos, keep = route_slots(top_e, top_p, E, capacity)
     return MoeRoute(probs, top_p, top_e, pos, keep, aux)
+
+
+def _dispatch_rows(x, top_e, pos, keep, n_experts: int, capacity: int):
+    B, S, D = x.shape
+    K = top_e.shape[-1]
+    keep = keep.reshape(B, S, K)
+    buf = x.new_zeros(n_experts + 1, B, capacity, D)
+    e = torch.where(keep, top_e, n_experts)
+    pos = torch.where(keep, pos.reshape(B, S, K), 0)
+    b = torch.arange(B, device=x.device)[:, None, None]
+    buf[e, b, pos] = x[:, :, None, :]
+    return buf[:n_experts]
 
 
 def moe_dispatch(x, route: MoeRoute, n_experts: int, capacity: int):
@@ -602,16 +694,16 @@ def moe_dispatch(x, route: MoeRoute, n_experts: int, capacity: int):
     one indexed write gives the reference's scatter-add (whose dropped
     slots add exact zeros); dropped slots write to a spare expert row
     past the last, which is cut off, so nothing waits on the device to
-    count the kept slots."""
-    B, S, D = x.shape
-    K = route.top_e.shape[-1]
-    keep = route.keep.reshape(B, S, K)
-    buf = x.new_zeros(n_experts + 1, B, capacity, D)
-    e = torch.where(keep, route.top_e, n_experts)
-    pos = torch.where(keep, route.pos.reshape(B, S, K), 0)
-    b = torch.arange(B, device=x.device)[:, None, None]
-    buf[e, b, pos] = x[:, :, None, :]
-    return buf[:n_experts]
+    count the kept slots.  On DTensors each rank writes its batch rows
+    (``local_map``)."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Shard
+        return _batch_local(
+            lambda *a: _dispatch_rows(*a, n_experts, capacity),
+            lambda bp: [Shard(1) if b == Shard(0) else b for b in bp],
+            (x, 0), (route.top_e, 0), (route.pos, 0), (route.keep, 0))
+    return _dispatch_rows(x, route.top_e, route.pos, route.keep, n_experts,
+                          capacity)
 
 
 def moe_experts(p, buf, cfg: ModelConfig):
@@ -620,31 +712,38 @@ def moe_experts(p, buf, cfg: ModelConfig):
     E, B, C, D = buf.shape
     dt = buf.dtype
     flat = buf.reshape(E, B * C, D)
-    h = _act(torch.bmm(flat, p["w_gate"].to(dt)), cfg.act)
-    h = h * torch.bmm(flat, p["w_up"].to(dt))
+    h = _act(torch.bmm(flat, at_use(p["w_gate"], dt)), cfg.act)
+    h = h * torch.bmm(flat, at_use(p["w_up"], dt))
     h = lshard(h, "experts", "batch", "expert_mlp")     # (E, B*C, F)
-    return torch.bmm(h, p["w_down"].to(dt)).reshape(E, B, C, D)
+    return torch.bmm(h, at_use(p["w_down"], dt)).reshape(E, B, C, D)
 
 
-def moe_combine(out_buf, route: MoeRoute, S: int,
-                replicated_buf: bool = False):
-    """Each token's output: its K slots' expert outputs weighted by the
-    router (dropped slots weigh 0), added one k after another in the
-    activations' type, the order of the reference's scatter-add."""
+def _combine_rows(out_buf, top_e, top_p, pos, keep):
     E, B, C, D = out_buf.shape
-    K = route.top_e.shape[-1]
+    S, K = top_e.shape[1], top_e.shape[-1]
     dt = out_buf.dtype
-    flat_e = route.top_e.reshape(B, S * K)
+    flat_e = top_e.reshape(B, S * K)
     bidx = torch.arange(B, device=out_buf.device)[:, None]
-    gathered = out_buf[flat_e, bidx, route.pos.clamp(0, C - 1)]
-    if replicated_buf:
-        gathered = lshard(gathered, "batch", None, None)
-    weight = route.keep.to(dt) * route.top_p.reshape(B, S * K).to(dt)
+    gathered = out_buf[flat_e, bidx, pos.clamp(0, C - 1)]
+    weight = keep.to(dt) * top_p.reshape(B, S * K).to(dt)
     g = (gathered * weight[..., None]).reshape(B, S, K, D)
     out = torch.zeros(B, S, D, dtype=dt, device=out_buf.device)
     for k in range(K):
         out = out + g[:, :, k]
     return out
+
+
+def moe_combine(out_buf, route: MoeRoute):
+    """Each token's output: its K slots' expert outputs weighted by the
+    router (dropped slots weigh 0), added one k after another in the
+    activations' type, the order of the reference's scatter-add.  On
+    DTensors each rank gathers its batch rows' slots from every expert
+    (``local_map`` over the buffer replicated along the experts)."""
+    args = (route.top_e, route.top_p, route.pos, route.keep)
+    if is_dtensor(out_buf):
+        return _batch_local(_combine_rows, lambda bp: bp, (out_buf, 1),
+                            *((t, 0) for t in args))
+    return _combine_rows(out_buf, *args)
 
 
 def moe_layer(p, x, cfg: ModelConfig, capacity: Optional[int] = None):
@@ -663,5 +762,4 @@ def moe_layer(p, x, cfg: ModelConfig, capacity: Optional[int] = None):
     buf = lshard(buf, *buf_axes)
     out_buf = lshard(moe_experts(p, buf, cfg), *buf_axes)
     del buf
-    return (moe_combine(out_buf, route, x.shape[1], replicated),
-            route.aux)
+    return moe_combine(out_buf, route), route.aux

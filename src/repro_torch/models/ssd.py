@@ -24,7 +24,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..runtime.sharding import lshard
+from ..runtime.sharding import (_local_kv, at_use, is_dtensor, like, lshard,
+                                shard_block)
 from .config import ModelConfig
 from .layers import Layout, rms_norm_gated
 
@@ -79,7 +80,49 @@ def ssd_scan(xh, dt, A, Bm, Cm, chunk: int,
     The intra-chunk decay exp(cum_q - cum_k) is taken only where k <= q:
     the masked half is set to -inf before the exp, where the reference
     takes the exp everywhere and selects after it (the same values; its
-    masked half can overflow to inf)."""
+    masked half can overflow to inf).  On DTensors each rank scans its
+    batch rows and heads (``local_map``)."""
+    if is_dtensor(xh):
+        return _scan_local_heads(xh, dt, A, Bm, Cm, chunk, init_state)
+    return _scan(xh, dt, A, Bm, Cm, chunk, init_state)
+
+
+def _scan_local_heads(xh, dt, A, Bm, Cm, chunk, init_state):
+    """``_scan`` on each rank's batch rows and heads of DTensor ``xh``,
+    with the groups of B and C its heads read (head h reads group
+    ``h // (H / G)``, as kv heads are read in ``map_local_heads``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xh.device_mesh
+    H, G = xh.shape[2], Bm.shape[2]
+    xp = [p if p in (Shard(0), Shard(2)) else Replicate()
+          for p in xh.placements]
+    bp = [Shard(0) if p == Shard(0) else Replicate() for p in xp]
+    ap = [Shard(0) if p == Shard(2) else Replicate() for p in xp]
+    sp = [Shard(1) if p == Shard(2) else p for p in xp]   # (B, H, P, N)
+    block, n_blocks = shard_block(mesh, xp, 2)
+    n_loc = H // n_blocks
+
+    def local(xl, dtl, al, bl, cl, *state):
+        bl = _local_kv(bl, block * n_loc, n_loc, H // G).contiguous()
+        cl = _local_kv(cl, block * n_loc, n_loc, H // G).contiguous()
+        return _scan(xl, dtl, al, bl, cl, chunk, *state)
+
+    args = [xh.redistribute(mesh, xp), like(dt, xh).redistribute(mesh, xp),
+            like(A, xh).redistribute(mesh, ap),
+            like(Bm, xh).redistribute(mesh, bp),
+            like(Cm, xh).redistribute(mesh, bp)]
+    ins = [xp, xp, ap, bp, bp]
+    if init_state is not None:
+        args.append(like(init_state, xh).redistribute(mesh, sp))
+        ins.append(sp)
+    run = local_map(local, out_placements=(xp, sp), in_placements=tuple(ins),
+                    device_mesh=mesh)
+    return run(*args)
+
+
+def _scan(xh, dt, A, Bm, Cm, chunk: int,
+          init_state: Optional[torch.Tensor] = None):
     B, S, H, P = xh.shape
     G, N = Bm.shape[2], Bm.shape[3]
     hpg = H // G
@@ -138,11 +181,11 @@ def ssd_layer(p, x, cfg: ModelConfig, cache: Optional[dict] = None,
     B, S, D = x.shape
     H, P = cfg.ssm_heads, cfg.ssm_head_dim
     G, N = cfg.ssm_groups, cfg.ssm_state
-    h = x @ p["w_in"].to(x.dtype)
+    h = x @ at_use(p["w_in"], x.dtype)
     z, xc, Bm, Cm, dt = _split_in(h, cfg)
     conv_in = torch.cat([xc, Bm, Cm], dim=-1)
     conv_out, conv_tail = _causal_conv(
-        conv_in, p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype),
+        conv_in, at_use(p["conv_w"], x.dtype), p["conv_b"].to(x.dtype),
         None if cache is None else cache.get("conv"))
     conv_out = F.silu(conv_out)
     xc = conv_out[..., :cfg.d_inner]
@@ -157,25 +200,66 @@ def ssd_layer(p, x, cfg: ModelConfig, cache: Optional[dict] = None,
         p["skip_D"].to(y.dtype)[None, None, :, None]
     y = y.reshape(B, S, cfg.d_inner)
     y = rms_norm_gated(y, z, p["w_norm"], cfg.norm_eps)
-    out = y @ p["w_out"].to(x.dtype)
+    out = y @ at_use(p["w_out"], x.dtype)
     if return_cache:
         return out, {"conv": conv_tail, "state": state}
     return out
 
 
+def _step(xh, dt, A, Bm, Cm, state, skip):
+    """One token's recurrence: xh (B,H,P), dt (B,H), A and skip (H,),
+    Bm, Cm (B,G,N), state (B,H,P,N) fp32; (y (B,H,P) fp32, new state)."""
+    hpg = xh.shape[1] // Bm.shape[1]
+    decay = torch.exp(dt * A[None, :])                      # (B,H)
+    Bh = torch.repeat_interleave(Bm, hpg, dim=1)            # (B,H,N)
+    state = state * decay[..., None, None] + \
+        torch.einsum("bh,bhn,bhp->bhpn", dt, Bh.float(), xh.float())
+    Ch = torch.repeat_interleave(Cm, hpg, dim=1)
+    y = torch.einsum("bhn,bhpn->bhp", Ch.float(), state)
+    return y + xh.float() * skip[None, :, None], state
+
+
+def _step_local_heads(xh, dt, A, Bm, Cm, state, skip):
+    """``_step`` on each rank's batch rows and heads of DTensor ``xh``,
+    with the groups its heads read, as ``_scan_local_heads``."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    xh = lshard(xh, "batch", "ssm_heads", None)
+    mesh = xh.device_mesh
+    H, G = xh.shape[1], Bm.shape[1]
+    xp = [p if p in (Shard(0), Shard(1)) else Replicate()
+          for p in xh.placements]
+    bp = [Shard(0) if p == Shard(0) else Replicate() for p in xp]
+    hp = [Shard(0) if p == Shard(1) else Replicate() for p in xp]
+    block, n_blocks = shard_block(mesh, xp, 1)
+    n_loc = H // n_blocks
+
+    def local(xl, dtl, al, bl, cl, sl, kl):
+        groups = [_local_kv(t[:, None], block * n_loc, n_loc, H // G)[:, 0]
+                  for t in (bl, cl)]
+        return _step(xl, dtl, al, *groups, sl, kl)
+
+    ins = (xp, xp, hp, bp, bp, xp, hp)
+    args = [like(t, xh).redistribute(mesh, pl)
+            for t, pl in zip((xh, dt, A, Bm, Cm, state, skip), ins)]
+    run = local_map(local, out_placements=(xp, xp), in_placements=ins,
+                    device_mesh=mesh)
+    return run(*args)
+
+
 def ssd_decode(p, x, cache: dict, cfg: ModelConfig):
     """Single-token decode: x (B,1,D); cache {"conv": (B,K-1,conv_dim),
     "state": (B,H,P,N)}.  Returns (out (B,1,D), cache), the cache's
-    tensors written in place."""
+    tensors written in place.  On DTensors each rank steps its batch
+    rows and heads (``local_map``)."""
     B = x.shape[0]
     H, P = cfg.ssm_heads, cfg.ssm_head_dim
     G, N = cfg.ssm_groups, cfg.ssm_state
-    hpg = H // G
-    h = x @ p["w_in"].to(x.dtype)                           # (B,1,d_in)
+    h = x @ at_use(p["w_in"], x.dtype)                      # (B,1,d_in)
     z, xc, Bm, Cm, dt = _split_in(h, cfg)
     conv_in = torch.cat([xc, Bm, Cm], dim=-1)               # (B,1,conv_dim)
     window = torch.cat([cache["conv"].to(x.dtype), conv_in], dim=1)
-    w = p["conv_w"].to(x.dtype)                             # (c,K)
+    w = at_use(p["conv_w"], x.dtype)                        # (c,K)
     conv_out = torch.einsum("bkc,ck->bc", window, w) + p["conv_b"].to(x.dtype)
     conv_out = F.silu(conv_out)[:, None, :]                 # (B,1,c)
     xc = conv_out[..., :cfg.d_inner]
@@ -184,16 +268,14 @@ def ssd_decode(p, x, cache: dict, cfg: ModelConfig):
     dt = F.softplus(dt.float() + p["dt_bias"].float()[None, None, :])[:, 0]
     A = -torch.exp(p["A_log"].float())
     xh = xc.reshape(B, H, P)
-    decay = torch.exp(dt * A[None, :])                      # (B,H)
-    Bh = torch.repeat_interleave(Bm, hpg, dim=1)            # (B,H,N)
-    state = cache["state"] * decay[..., None, None] + \
-        torch.einsum("bh,bhn,bhp->bhpn", dt, Bh.float(), xh.float())
-    Ch = torch.repeat_interleave(Cm, hpg, dim=1)
-    y = torch.einsum("bhn,bhpn->bhp", Ch.float(), state)
-    y = y + xh.float() * p["skip_D"].float()[None, :, None]
+    args = (xh, dt, A, Bm, Cm, cache["state"], p["skip_D"].float())
+    if is_dtensor(xh):
+        y, state = _step_local_heads(*args)
+    else:
+        y, state = _step(*args)
     y = y.reshape(B, 1, cfg.d_inner).to(x.dtype)
     y = rms_norm_gated(y, z, p["w_norm"], cfg.norm_eps)
-    out = y @ p["w_out"].to(x.dtype)
+    out = y @ at_use(p["w_out"], x.dtype)
     cache["conv"].copy_(window[:, 1:, :])
     cache["state"].copy_(state)
     return out, cache

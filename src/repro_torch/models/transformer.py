@@ -57,7 +57,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..runtime.sharding import full, is_dtensor, keep_whole, like, lshard
+from ..runtime.sharding import (at_use, current_rules, full,
+                                grad_placed_as, is_dtensor, keep_whole, like,
+                                lshard, use_rules)
 from . import layers as L
 from . import ssd as S
 from .config import ModelConfig
@@ -160,6 +162,13 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
 
     _walk(param_layout(cfg), add)
     return total
+
+
+def model_flops_per_token(cfg: ModelConfig) -> float:
+    """MODEL_FLOPS convention: 6·N (dense) / 6·N_active (MoE) per token
+    of a training step (forward and backward); a forward pass alone is a
+    third of it."""
+    return 6.0 * count_params(cfg, active_only=True)
 
 
 def _leaf_dtype(path, dtype):
@@ -301,7 +310,8 @@ def _embed(params, cfg: ModelConfig, tokens, image_embeds=None):
     # ``F.embedding``, not indexing: the same rows, and a backward that
     # DTensor can shard (indexing's ``index_put`` has no rule for a
     # batch-sharded gradient in torch 2.11)
-    x = F.embedding(tokens.long(), table).to(COMPUTE_DTYPE)
+    x = F.embedding(tokens.long(), at_use(table, table.dtype)).to(
+        COMPUTE_DTYPE)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=COMPUTE_DTYPE,
                              device=x.device)
@@ -313,6 +323,7 @@ def _embed(params, cfg: ModelConfig, tokens, image_embeds=None):
                 f"{cfg.arch_id}: image_embeds {list(image_embeds.shape)} "
                 f"must be ({B}, {n}, {D}) and fill the first {n} positions "
                 f"of the prompt, which has {S}")
+        image_embeds = lshard(image_embeds, "batch", None, None)
         x = torch.cat([image_embeds.to(device=x.device, dtype=COMPUTE_DTYPE),
                        x[:, n:]], 1)
     return x
@@ -320,9 +331,9 @@ def _embed(params, cfg: ModelConfig, tokens, image_embeds=None):
 
 def _unembed(params, cfg: ModelConfig, x):
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].to(COMPUTE_DTYPE).T   # (V_pad, D)
+        logits = x @ at_use(params["embed"], COMPUTE_DTYPE).T  # (V_pad, D)
     else:
-        logits = x @ params["unembed"].to(COMPUTE_DTYPE)
+        logits = x @ at_use(params["unembed"], COMPUTE_DTYPE)
     logits = L.softcap(logits.float(), cfg.logit_softcap)
     if cfg.padded_vocab != cfg.vocab_size:                 # mask pad rows
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
@@ -335,11 +346,24 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return lshard(pos, "batch", "seq")
 
 
+def _summed(x):
+    """The residual stream placed as the layers read it, batch-sharded
+    and whole along d_model: a row-parallel product's output (the
+    attention's ``wo``, the SSD block's ``w_out``, the MLP's ``w_down``)
+    leaves a partial sum over the tensor-parallel ranks, which is
+    all-reduced here, before a norm, as Megatron does; DTensor would
+    otherwise carry the partial sum into the next products and gather
+    their weights whole.  Its gradient is all-reduced here too
+    (``grad_placed_as``), for the same reason in the backward pass."""
+    return grad_placed_as(lshard(x, "batch", "seq", None))
+
+
 def _cross(lp, x, cfg: ModelConfig, enc_kv):
     """A decoder layer's attention to the encoder (``lnx`` then
     ``xattn`` over ``enc_kv``), where the layer has it."""
     if "xattn" not in lp:
         return x
+    x = _summed(x)
     hx = L.rms_norm(x, lp["lnx"], cfg.norm_eps)
     return x + L.cross_attention_layer(lp["xattn"], hx, enc_kv, cfg)
 
@@ -349,6 +373,7 @@ def _ffn(lp, x, cfg: ModelConfig):
     aux None without MoE.  A layer without ``ln2`` (mamba2) has none."""
     if "ln2" not in lp:
         return x, None
+    x = _summed(x)
     h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if "moe" in lp:
         out, aux = L.moe_layer(lp["moe"], h2, cfg)
@@ -379,7 +404,7 @@ def _enc_layer(lp, x, cfg: ModelConfig, positions, impl):
                           positions=positions)
     o = L.run_attention(q, k, v, positions, positions, cfg, causal=False,
                         impl=impl)
-    x = x + o.reshape(B, F, -1) @ lp["attn"]["wo"].to(x.dtype)
+    x = _summed(x + o.reshape(B, F, -1) @ at_use(lp["attn"]["wo"], x.dtype))
     h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + L.mlp_layer(lp["mlp"], h2, cfg)
 
@@ -396,7 +421,7 @@ def _encode(params, cfg: ModelConfig, frames, impl="naive"):
         F, D, device=frames.device)[None].to(COMPUTE_DTYPE), frames)
     positions = _positions(B, F, x.device)
     for lp in params["enc_layers"]:
-        x = _enc_layer(lp, x, cfg, positions, impl)
+        x = _summed(_enc_layer(lp, x, cfg, positions, impl))
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -407,10 +432,10 @@ def _enc_kv(params, cfg: ModelConfig, enc_out) -> List:
     out = []
     for lp in params["layers"]:
         p = lp["xattn"]
-        out.append((L._split_heads(enc_out @ p["wk"].to(enc_out.dtype), KV,
-                                   hd),
-                    L._split_heads(enc_out @ p["wv"].to(enc_out.dtype), KV,
-                                   hd)))
+        out.append((L._split_heads(enc_out @ at_use(p["wk"], enc_out.dtype),
+                                   KV, hd),
+                    L._split_heads(enc_out @ at_use(p["wv"], enc_out.dtype),
+                                   KV, hd)))
     return out
 
 
@@ -475,14 +500,22 @@ def forward(params, cfg: ModelConfig, tokens, *, frames=None,
                                impl)
     positions = _positions(B, Sq, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    rules = current_rules()
+
+    def layer_forward(*args):
+        # the recompute runs on autograd's thread on the card: the rules
+        # (thread-local) go with it
+        with use_rules(rules):
+            return _layer_forward(*args)
+
     for l, lp in enumerate(params["layers"]):
         kv = None if enc_kv is None else enc_kv[l]
         if recompute:
-            x, a = checkpoint(_layer_forward, lp, x, cfg, l, positions, impl,
+            x, a = checkpoint(layer_forward, lp, x, cfg, l, positions, impl,
                               kv, use_reentrant=False, **ckpt_kw)
         else:
             x, a = _layer_forward(lp, x, cfg, l, positions, impl, kv)
-        x = lshard(x, "batch", "seq", None)
+        x = _summed(x)
         if a is not None:
             aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -643,7 +676,7 @@ def prefill(params, cfg: ModelConfig, tokens, *, frames=None,
             o = L.run_attention(q, k, v, positions, positions, cfg,
                                 causal=True, window=cfg.layer_window(i),
                                 impl=impl)
-            x = x + o.reshape(B, Sq, -1) @ lp["attn"]["wo"].to(x.dtype)
+            x = x + o.reshape(B, Sq, -1) @ at_use(lp["attn"]["wo"], x.dtype)
             layer_cache = to_cache(k, v, l)
         if enc_kv is not None:
             layer_cache["cross_k"], layer_cache["cross_v"] = enc_kv[l]

@@ -171,6 +171,42 @@ def like(x: torch.Tensor, ref) -> torch.Tensor:
     return x
 
 
+def at_use(w, dtype):
+    """Weight ``w`` cast to ``dtype`` for use in a product.  Under rules,
+    a DTensor's shards over the mesh axes that shard ``batch`` (FSDP's
+    shards of ``embed``) are gathered after the cast: the all-gather XLA
+    inserts for the reference's annotations.  Left to itself, DTensor
+    may move the activations onto the weight's shards instead (its
+    cheapest redistribution by bytes), and every rank then multiplies
+    the whole batch."""
+    w = w.to(dtype)
+    rules = current_rules()
+    if rules is None or not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+    batch = rules.placements(("batch",))
+    want = [Replicate() if b == Shard(0) else p
+            for p, b in zip(w.placements, batch)]
+    return w if want == list(w.placements) else \
+        w.redistribute(w.device_mesh, want)
+
+
+def grad_placed_as(x):
+    """``x`` itself in the forward pass; in the backward pass its gradient
+    is redistributed to ``x``'s own placements.  A partial sum over the
+    tensor-parallel ranks, which the products reading ``x`` leave in its
+    gradient, is all-reduced here (Megatron's f) before it reaches a
+    row-parallel product's backward: carried into it, DTensor gathers
+    that product's weight whole and every tensor-parallel rank repeats
+    its work.  A no-op off a DTensor, or where no gradient is taken."""
+    if not is_dtensor(x) or not x.requires_grad:
+        return x
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(x.to_local(), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
 def full(x):
     """The whole tensor of a DTensor (a collective over its mesh), or
     ``x`` itself."""
@@ -233,14 +269,25 @@ def _local_kv(k: torch.Tensor, first: int, n_q: int, group: int):
     ``j`` reads local kv head ``j // (n_q / len)``: a contiguous slice
     where the q heads cover whole groups or lie in one group, else one
     kv head per q head."""
-    idx = torch.arange(first, first + n_q) // group
-    kv = torch.unique_consecutive(idx)
-    per = n_q // kv.numel()
-    if per * kv.numel() == n_q and bool(
-            (idx == kv.repeat_interleave(per)).all()):
-        lo = int(kv[0])
-        return k[:, :, lo:lo + kv.numel()]
-    return k[:, :, idx.to(k.device)]
+    # host integers: the layout depends on shapes only, never on data
+    idx = [h // group for h in range(first, first + n_q)]
+    kv = sorted(set(idx))
+    per = n_q // len(kv)
+    if per * len(kv) == n_q and idx == [h for h in kv for _ in range(per)]:
+        return k[:, :, kv[0]:kv[0] + len(kv)]
+    return k[:, :, torch.tensor(idx, device=k.device)]
+
+
+def shard_block(mesh, placements, dim: int) -> Tuple[int, int]:
+    """(this rank's block, blocks) of tensor dimension ``dim`` split as
+    ``placements`` say: the mesh dimensions that shard it, major first."""
+    from torch.distributed.tensor import Shard
+    block, n_blocks = 0, 1
+    for i, p in enumerate(placements):
+        if p == Shard(dim):
+            block = block * mesh.size(i) + mesh.get_local_rank(i)
+            n_blocks *= mesh.size(i)
+    return block, n_blocks
 
 
 def map_local_heads(fn, q, k, v, *rest, **kw):
@@ -266,11 +313,7 @@ def map_local_heads(fn, q, k, v, *rest, **kw):
     k, v = (like(t, q).redistribute(mesh, bp) for t in (k, v))
     rest = tuple(like(t, q).redistribute(mesh, bp) for t in rest)
     # the rank's block of q heads: mesh dims sharding heads, major first
-    block, n_blocks = 0, 1
-    for i, p in enumerate(qp):
-        if p == Shard(2):
-            block = block * mesh.size(i) + mesh.get_local_rank(i)
-            n_blocks *= mesh.size(i)
+    block, n_blocks = shard_block(mesh, qp, 2)
     if H % n_blocks:
         raise ValueError(f"{H} q heads do not split evenly over "
                          f"{n_blocks} ranks; pad them (pad_heads_for_tp)")

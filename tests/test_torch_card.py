@@ -20,7 +20,10 @@ must one encoder layer and one decoder layer of whisper-small (phase 12:
 within 1e-4).  On a one-rank NCCL mesh (phase 13) the sharded path runs
 the unsharded operations: a flash prefill and decode steps within 1e-3,
 a training step within 1e-4, the wgmma kernel reached once through
-``local_map`` and bit-equal, and ``compressed_psum`` exact to its step.
+``local_map`` and bit-equal, and ``compressed_psum`` exact to its step;
+one body of each other family (MoE, SSD, hybrid, VLM, encoder-decoder)
+runs its prefill, a decode step and a training step on that mesh as it
+runs without one, within the same bounds.
 
 Imports only the port (the card's machine has no JAX and no msgpack),
 and skips where there is no CUDA card.  On a card:
@@ -476,3 +479,56 @@ def test_compressed_psum_over_one_nccl_rank(nccl_mesh):
 def placed_by(t, placements):
     assert list(t.placements) == list(placements)
 
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-780m",
+                                  "jamba-v0.1-52b", "pixtral-12b",
+                                  "whisper-small"])
+def test_family_body_on_a_one_rank_nccl_mesh(nccl_mesh, arch):
+    """One scan body of each family's smoke config (jamba's eight layers:
+    attention, SSD, MoE; whisper's with one encoder layer) placed on the
+    (1, 1) NCCL mesh: the MoE router, dispatch and combine, the SSD scan
+    and decode step, the image embeddings and the encoder run through
+    ``local_map`` and DTensor's rules on the card's torch, and give a
+    prefill and a decode step within 1e-3 and a training step's loss
+    within 1e-4 of the same run without the mesh."""
+    from repro_torch import configs as C
+    from repro_torch.launch import serve as S
+    from repro_torch.models import transformer as M
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as SH, specs as SP
+    from repro_torch.runtime.steps import TrainHParams, build_train_step
+    smoke = C.get_smoke(arch)
+    cfg = smoke.replace(n_layers=smoke.scan_period, n_encoder_layers=min(
+        smoke.n_encoder_layers, 1))
+    rules = SP.cell_rules(cfg, ShapeConfig("t", 32, 4, "train"), nccl_mesh)
+    batch = S.make_batch(cfg, 4, 32, seed=1, device="cuda")
+    tokens = batch.pop("tokens")
+    params = M.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    placed = SP.place(rules, params, M.param_axes(cfg))
+    with torch.inference_mode():
+        want, cache = M.prefill(params, cfg, tokens, max_seq=34, **batch)
+        with SH.use_rules(rules):
+            got, cache2 = M.prefill(placed, cfg, tokens, max_seq=34,
+                                    **batch)
+        assert float((SH.full(got) - want).abs().max()) <= 1e-3
+        tok = torch.argmax(want, -1)[:, None]
+        pos = torch.full((4,), 32, dtype=torch.int32, device="cuda")
+        want, _ = M.decode_step(params, cfg, tok, cache, pos)
+        with SH.use_rules(rules):
+            got, _ = M.decode_step(placed, cfg, tok, cache2, pos)
+        assert float((SH.full(got) - want).abs().max()) <= 1e-3
+    step = build_train_step(cfg, TrainHParams(n_micro=2, remat=True,
+                                              remat_policy="none"))
+    train = {"tokens": tokens.cpu(), "labels": tokens.roll(-1, 1).cpu(),
+             **{k: v.cpu() for k, v in batch.items()}}
+    p32 = M.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    _, _, want = step(p32, adamw.init(p32), train)
+    p32 = SP.place(rules, M.init_params(cfg, seed=0, device="cuda",
+                                        dtype=torch.float32),
+                   M.param_axes(cfg))
+    with SH.use_rules(rules):
+        _, _, got = step(p32, adamw.init(p32), train)
+    assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-4 * abs(
+        float(want["loss"]))

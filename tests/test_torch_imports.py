@@ -1,7 +1,8 @@
 """The port stands alone: importing every ``repro_torch`` module pulls in
 no JAX, nothing of the reference package, no ``msgpack`` (the card's
-machine has none of them) and no ``triton``, and compiles or loads no
-kernel."""
+machine has none of them) and no ``triton``, compiles or loads no
+kernel, and starts no process group (the dry run makes its fake one
+when it runs)."""
 
 import os
 import pkgutil
@@ -63,7 +64,10 @@ def test_every_port_module_is_listed():
                  "repro_torch.launch.train",
                  "repro_torch.runtime.sharding",
                  "repro_torch.runtime.specs", "repro_torch.launch.mesh",
-                 "repro_torch.optim.compress", "repro_torch.kernels.ref"):
+                 "repro_torch.optim.compress", "repro_torch.kernels.ref",
+                 "repro_torch.launch.dryrun",
+                 "repro_torch.launch.hlo_analysis",
+                 "repro_torch.launch.roofline_model"):
         assert want in names
 
 
@@ -74,14 +78,16 @@ def test_port_imports_no_jax_reference_or_msgpack():
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         "from repro_torch.kernels import _build, flash_attention, stream_ops\n"
+        "import torch.distributed as dist\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro', 'msgpack', 'triton'))\n"
         "print(json.dumps({'bad': bad, 'lib': not _build._libs,\n"
         "                  'launches': stream_ops.launches\n"
-        "                  + flash_attention.launches}))\n")
+        "                  + flash_attention.launches,\n"
+        "                  'group': dist.is_initialized()}))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == \
-        '{"bad": [], "lib": true, "launches": 0}'
+        '{"bad": [], "lib": true, "launches": 0, "group": false}'

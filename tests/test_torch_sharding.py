@@ -50,14 +50,21 @@ from repro_torch.models.config import ModelConfig, ShapeConfig  # noqa: E402
 from repro_torch.optim import adamw as PA                 # noqa: E402
 from repro_torch.runtime import sharding as PSh           # noqa: E402
 from repro_torch.runtime import specs as PSp              # noqa: E402
+from test_torch_encdec import draw_extras                 # noqa: E402
 from test_torch_moe import ref_weights                    # noqa: E402
 import torch_ranks                                        # noqa: E402
+from torch_ranks_sharding import FAMILIES                 # noqa: E402
 
 ARCHS = PC.list_archs()
 LOSS_ATOL = 5e-2
 GRAD_NORM_RTOL = 1e-2
 HEAD_PAD_TOL = 2e-5
 FP32_ATOL = 2e-5
+#: the families' float32 prefill and decode logits against the
+#: reference's (the families' own cross-package bound)
+FAMILY_FP32_ATOL = 1e-4
+#: (B, S) of the families' inputs: the batch splits over the data axis
+FAMILY_BS = (4, 16)
 #: (B, S) of the cells: the second batch divides no DP axis of the
 #: production meshes
 CELL_SHAPES = [(64, 32), (6, 16)]
@@ -364,6 +371,75 @@ def test_head_padding_preserves_gqa_semantics(H, KV, monkeypatch):
 
 
 # ------------------------------------------------ four ranks on a 2x2 mesh
+def family_inputs() -> dict:
+    """Each family's seeded weights (the reference's layout), tokens,
+    extra inputs and two decode steps' tokens, keyed ``<arch>/...`` and
+    ``<arch>:...``."""
+    out = {}
+    for i, arch in enumerate(FAMILIES):
+        cfg = RC.get_smoke(arch)
+        out.update({f"{arch}/{k}": a for k, a in torch_ranks.flatten(
+            ref_weights(cfg, 20 + i)).items()})
+        rng = np.random.RandomState(20 + i)
+        out[f"{arch}:tokens"] = rng.randint(
+            0, cfg.vocab_size, FAMILY_BS).astype(np.int64)
+        for k, a in draw_extras(cfg, rng, FAMILY_BS[0]).items():
+            out[f"{arch}:{k}"] = a
+        out[f"{arch}:decode"] = rng.randint(
+            0, cfg.vocab_size, (2, FAMILY_BS[0], 1)).astype(np.int64)
+    return out
+
+
+@pytest.fixture(scope="module")
+def family_refs():
+    """The reference's single-device runs of ``family_inputs`` in
+    float32 (its ``COMPUTE_DTYPE`` patched, as the families' float32
+    tests do): the loss, the prefill's last logits, two decode steps, and
+    the experts of every MoE call (a callback in its ``moe_layer``)."""
+    inputs = family_inputs()
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(RT, "COMPUTE_DTYPE", jnp.float32)
+        routes = []
+        real = RL.moe_layer
+
+        def moe_layer(p, x, cfg, capacity=None):
+            logits = jnp.einsum("bsd,de->bse", x,
+                                p["w_router"].astype(x.dtype))
+            probs = jax.nn.softmax(logits.astype(jnp.float32), -1)
+            jax.debug.callback(lambda e: routes.append(np.asarray(e)),
+                               jax.lax.top_k(probs, cfg.top_k)[1],
+                               ordered=True)
+            return real(p, x, cfg, capacity)
+
+        mp.setattr(RL, "moe_layer", moe_layer)
+        for arch in FAMILIES:
+            cfg = RC.get_smoke(arch)
+            params = jax.tree.map(jnp.asarray, torch_ranks.unflatten(
+                inputs, f"{arch}/"))
+            tokens = jnp.asarray(inputs[f"{arch}:tokens"].astype(np.int32))
+            extras = {k: jnp.asarray(inputs[f"{arch}:{k}"])
+                      for k in ("frames", "image_embeds")
+                      if f"{arch}:{k}" in inputs}
+            B, S = tokens.shape
+            routes.clear()
+            res = {"loss": float(RT.loss_fn(params, cfg, tokens,
+                                            jnp.roll(tokens, -1, 1),
+                                            **extras)[1][0])}
+            last, cache = RT.prefill(params, cfg, tokens[:, :-1],
+                                     max_seq=S + 2, impl="naive", **extras)
+            res["prefill"] = np.asarray(last)
+            for i, tok in enumerate(inputs[f"{arch}:decode"]):
+                logits, cache = RT.decode_step(
+                    params, cfg, jnp.asarray(tok.astype(np.int32)), cache,
+                    jnp.full((B,), S - 1 + i, jnp.int32))
+                res[f"decode {i}"] = np.asarray(logits[:, 0])
+            jax.effects_barrier()
+            res["routes"] = [r.copy() for r in routes]
+            out[arch] = res
+    return out
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """One spawn of four gloo ranks running ``torch_ranks_sharding.py``'s
@@ -384,7 +460,8 @@ def ranks(tmp_path_factory):
         d, granite_tokens=tokens.astype(np.int64), qwen_tokens=qt,
         qwen_labels=ql, gqa_tokens=gqa,
         **{f"granite/{k}": a for k, a in torch_ranks.flatten(wg).items()},
-        **{f"qwen/{k}": a for k, a in torch_ranks.flatten(wq).items()})
+        **{f"qwen/{k}": a for k, a in torch_ranks.flatten(wq).items()},
+        **family_inputs())
     ref_loss, _ = jax.jit(lambda p: RT.loss_fn(
         p, granite, jnp.asarray(tokens), jnp.asarray(labels)))(
         jax.tree.map(jnp.asarray, wg))
@@ -426,3 +503,43 @@ def test_local_gqa_prefill_and_decode(ranks, heads):
     assert case["cache_shard_dims"] == [0, 1]       # batch; slots
     assert max(case["diffs"]) <= FP32_ATOL
     assert case["cache_diff"] <= FP32_ATOL
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_under_rules_matches_the_reference(ranks, family_refs, arch):
+    """Each family's smoke model, sharded under the rules on the 2x2
+    mesh, against the reference's single-device run in float32: the
+    loss within 5e-2 and the prefill's and decode steps' logits within
+    1e-4 (the families' own bound between the packages) and within 2e-5
+    of the port's unsharded run.  A MoE model's routes are recorded in
+    both runs; logits are held in the batch rows whose every MoE call
+    chose the same experts in both, and every row must agree in the
+    port's two runs."""
+    got, ref = ranks["families"][arch], family_refs[arch]
+    sharded, plain = got["sharded"], got["plain"]
+    agree = np.ones(FAMILY_BS[0], bool)
+    assert len(got["routes"]["sharded"]) == len(got["routes"]["plain"])
+    for a, b in zip(got["routes"]["sharded"], got["routes"]["plain"]):
+        np.testing.assert_array_equal(a, b)
+    # the port's calls: the loss's forward, the prefill, two decode steps
+    # (the reference's come in the same order)
+    assert len(ref["routes"]) == len(got["routes"]["sharded"])
+    for mine, theirs in zip(got["routes"]["sharded"], ref["routes"]):
+        mine = np.asarray(mine)
+        agree &= (mine == theirs.reshape(mine.shape)).reshape(
+            mine.shape[0], -1).all(1)
+    if ref["routes"]:
+        print(f"{arch}: {len(ref['routes'])} MoE calls; batch rows routed "
+              f"alike in both packages: {agree.tolist()}")
+        assert agree.any()
+    diffs = {"loss": abs(sharded["loss"] - ref["loss"])}
+    for name in ("prefill", "decode 0", "decode 1"):
+        s, p = np.asarray(sharded[name]), np.asarray(plain[name])
+        diffs[name] = float(np.abs(s - ref[name])[agree].max())
+        diffs[name + " vs plain"] = float(np.abs(s - p).max())
+    print(f"{arch} under rules: {diffs}")
+    assert diffs["loss"] < LOSS_ATOL
+    assert abs(sharded["loss"] - plain["loss"]) <= FP32_ATOL
+    for name in ("prefill", "decode 0", "decode 1"):
+        assert diffs[name] <= FAMILY_FP32_ATOL, name
+        assert diffs[name + " vs plain"] <= FP32_ATOL, name

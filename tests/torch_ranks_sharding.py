@@ -9,7 +9,11 @@ of a 2x2 ``(data, model)`` mesh (one spawn; ``torch_ranks``):
   parameters stay DTensors with their axes' placements;
 - ``gqa``: a flash-impl prefill (the plain version on the CPU) and two
   decode steps in float32, for head counts whose local q heads do not
-  cover whole kv groups, unsharded and sharded.
+  cover whole kv groups, unsharded and sharded;
+- ``families``: the MoE, SSD, hybrid, VLM and encoder-decoder smoke
+  models in float32, weights and inputs from ``inputs.npz``: the loss, a
+  prefill and two decode steps, unsharded and sharded, with the experts
+  each MoE call chose (``top_e``) in both runs.
 
     python tests/torch_ranks_sharding.py <workdir>
 """
@@ -134,10 +138,80 @@ def gqa_case(mesh, inputs) -> dict:
     return out
 
 
+#: the families' smoke models of the ``families`` case
+FAMILIES = ("granite-moe-1b-a400m", "mamba2-780m", "jamba-v0.1-52b",
+            "pixtral-12b", "whisper-small")
+
+
+def family_run(cfg, params, inputs, arch, routes):
+    """loss, prefill of all but the last token and two decode steps of
+    ``inputs``' fixed tokens: whole tensors as lists, and the experts of
+    every MoE call appended to ``routes``."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.sharding import full
+    real = L.moe_route
+
+    def route(*a, **k):
+        r = real(*a, **k)
+        routes.append(full(r.top_e).tolist())
+        return r
+
+    tokens = torch.from_numpy(inputs[f"{arch}:tokens"])
+    extras = {k: torch.from_numpy(inputs[f"{arch}:{k}"])
+              for k in ("frames", "image_embeds") if f"{arch}:{k}" in inputs}
+    B, S = tokens.shape
+    out = {}
+    L.moe_route = route
+    try:
+        with torch.no_grad():
+            out["loss"] = float(full(T.loss_fn(
+                params, cfg, tokens, torch.roll(tokens, -1, 1),
+                **extras)[1][0]))
+            last, cache = T.prefill(params, cfg, tokens[:, :-1],
+                                    max_seq=S + 2, **extras)
+            out["prefill"] = full(last).tolist()
+            for i, tok in enumerate(inputs[f"{arch}:decode"]):
+                pos = torch.full((B,), S - 1 + i, dtype=torch.int32)
+                logits, cache = T.decode_step(params, cfg,
+                                              torch.from_numpy(tok), cache,
+                                              pos)
+                out[f"decode {i}"] = full(logits[:, 0]).tolist()
+    finally:
+        L.moe_route = real
+    return out
+
+
+def families_case(mesh, inputs) -> dict:
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.runtime import sharding as SH, specs as SP
+    T.COMPUTE_DTYPE = torch.float32
+    out = {}
+    for arch in FAMILIES:
+        cfg = C.get_smoke(arch)
+        params = T.params_from_jax(torch_ranks.unflatten(inputs, f"{arch}/"),
+                                   device="cpu", dtype=torch.float32)
+        B, S = inputs[f"{arch}:tokens"].shape
+        rules = SP.cell_rules(cfg, ShapeConfig("t", S, B, "train"), mesh)
+        placed = SP.place(rules, params, T.param_axes(cfg))
+        routes = {"plain": [], "sharded": []}
+        plain = family_run(cfg, params, inputs, arch, routes["plain"])
+        with SH.use_rules(rules):
+            sharded = family_run(cfg, placed, inputs, arch,
+                                 routes["sharded"])
+        out[arch] = {"plain": plain, "sharded": sharded, "routes": routes}
+    return out
+
+
 def cases(rank, mesh, inputs, workdir) -> dict:
     return {"loss": loss_case(mesh, inputs),
             "train": train_case(mesh, inputs),
-            "gqa": gqa_case(mesh, inputs)}
+            "gqa": gqa_case(mesh, inputs),
+            "families": families_case(mesh, inputs)}
 
 
 if __name__ == "__main__":
