@@ -20,12 +20,20 @@ Phases, in order; any failed check exits nonzero and prints no result:
             head_dim with window and softcap, rows with nothing visible,
             phase 9's head_dim 64 with GQA 32:4, phase 11's head_dim 160
             (padded to 192 in the wgmma kernel), phase 12's non-causal
-            encoder over 1500 frames and its decoder prefill, and small
-            non-causal cases with Sq != Sk and Sk not a multiple of 64),
-            within 2e-5 (float32) / 2e-2 (bfloat16); both timed at the
-            shapes of phases 5, 9, 11 and 12 (encoder and decoder), in turns
-            with ``scaled_dot_product_attention`` on the same tensors as
-            a yardstick (the port never calls it);
+            encoder over 1500 frames and its decoder prefill, small
+            non-causal cases with Sq != Sk and Sk not a multiple of 64,
+            and the prefills of phases 12a and 12b: gemma2-9b's 2 x 8192
+            tokens at head_dim 224 with its softcap, on a local layer
+            (window 4096) and a global one, and qwen2.5-14b's GQA 40:8),
+            within 2e-5 (float32) / 2e-2 (bfloat16), where a case with a
+            softcap has q scaled so that the cap matters, and each
+            kernel launched without the case's softcap or window must
+            fail the same check; both timed at the shapes of phases 5,
+            9, 11, 12 (encoder and decoder), 12a (both layers) and 12b,
+            in turns with ``scaled_dot_product_attention`` on the same
+            tensors as a yardstick (the port never calls it; with
+            gemma2's softcap, ``flex_attention`` compiled with the cap
+            as its score_mod, and SDPA without the cap beside it);
 4. main     the sharded changelog pipeline end to end: 4 MDT journals x
             262,144 records routed by ``LcapCluster(device="cuda")`` to
             4 shards, two consumer groups and an ephemeral reader
@@ -42,6 +50,8 @@ Phases, in order; any failed check exits nonzero and prints no result:
             which can lose a record, at most as many; no ``fid_slots``
             launch), 16 tokens
             generated, the LCAP invalidation loop over 2 replicas; then
+            5 warm calls of the launcher, whose medians are the phase's
+            prefill and decode times (as in every serving phase);
             flash-vs-naive and prefill/decode consistency of the logits;
 6. wire     the main path over the wire, on 4 MDT journals x 65,536
             records from phase 4's generator: (a) ``LcapClusterService``
@@ -120,6 +130,21 @@ Phases, in order; any failed check exits nonzero and prints no result:
             logits within 0.12; one encoder layer and one decoder layer
             with its cross attention in float32 on the card against the
             CPU, within 1e-4;
+12a. gemma gemma2-9b at full width and depth (42 layers, 9.01 B
+            parameters in bf16; head_dim 224, padded to 256 in the wgmma
+            kernel; a window of 4096 on its 21 local layers; attention
+            and logit softcaps; tied, scaled embeddings over 256,000
+            rows) serving 2 prompts of 8192 tokens: 42 wgmma launches per
+            prefill, 21 of them with window 4096 (by the wrapper's
+            arguments), none of the CUDA-core kernel (counted as in
+            phase 5), no ``fid_slots`` launch; flash-vs-naive logits,
+            and a decode step at position 8192, which lands in slot 0 of
+            each local layer's wrapped 4096-slot ring, against an
+            8193-token prefill, within 0.12 or as phase 11 holds them;
+12b. qwen   qwen2.5-14b at full width and depth (48 layers, 14.77 B
+            parameters in bf16; QKV bias, GQA 40:8) on phase 5's traffic:
+            48 wgmma launches per prefill and none of the CUDA-core
+            kernel, no ``fid_slots`` launch; the logits checks of 12a;
 13. mesh    the sharded path on a one-rank NCCL process group (a
             ``FileStore`` in a temporary directory) and
             ``make_elastic_mesh(1)``'s (1, 1) ``DeviceMesh``: (a) phase 5's
@@ -153,8 +178,9 @@ Phases, in order; any failed check exits nonzero and prints no result:
             every cell traced and ``ok``; per-device FLOPs, bytes,
             collective bytes, the rank's peak memory beside the card's
             and the dominant roofline term; (b) the one-card bound of
-            every measured prefill and decode step of phases 5 and 9-12
-            and of phase 8's training step: model FLOPs (6 N_active a
+            every measured prefill and decode step of phases 5, 9-12,
+            12a and 12b (the medians of their warm calls) and of phase
+            8's training step: model FLOPs (6 N_active a
             token to train, 2 N_active to serve) and
             ``estimate_hbm_bytes(n_dev=1)`` at the phase's own shape
             over the data sheet's 989 TFLOP/s and 3.35 TB/s, which must
@@ -166,7 +192,8 @@ Phases, in order; any failed check exits nonzero and prints no result:
 Then a JSON line of serve numbers, one of wire numbers, one of activity
 numbers, one of training numbers, one of MoE serving numbers, one of SSD
 serving numbers, one of VLM serving numbers, one of audio serving
-numbers, one of mesh numbers, one of roofline numbers, one of kernels,
+numbers, one of gemma2 and one of qwen2.5 serving numbers, one of mesh
+numbers, one of roofline numbers, one of kernels,
 the card's ``nvidia-smi`` line, and the result line ``{"ok": true,
 "device": {...}}`` last.  Imports nothing of
 JAX, of the reference package or of msgpack.
@@ -271,13 +298,31 @@ FLASH_DEC = ((4, 224, 224, 12, 12, 64), "bfloat16", True, 0, 0.0)
 FLASH_ENCDEC = [FLASH_VLM, FLASH_ENC, FLASH_DEC,
                 ((2, 100, 1500, 4, 4, 64), "bfloat16", False, 0, 0.0),
                 ((1, 64, 130, 4, 2, 160), "bfloat16", False, 0, 0.0)]
+#: the attention kernel's shapes on phases 12a and 12b: gemma2-9b's
+#: prefill at head_dim 224 (padded to 256 in the wgmma kernel), GQA 16:8,
+#: its softcap of 50 on every layer, on its local layers (window 4096) and
+#: its global ones; qwen2.5-14b's (GQA 40:8, head_dim 128)
+FLASH_GEMMA = ((2, 8192, 8192, 16, 8, 224), "bfloat16", True, 4096, 50.0)
+FLASH_GEMMA_GLOBAL = ((2, 8192, 8192, 16, 8, 224), "bfloat16", True, 0,
+                      50.0)
+FLASH_QWEN = ((4, 2048, 2048, 40, 8, 128), "bfloat16", True, 0, 0.0)
+FLASH_DENSE = [FLASH_GEMMA, FLASH_GEMMA_GLOBAL, FLASH_QWEN]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: q's scale in the cases with a softcap: scores of N(0, 1) inputs stay
+#: near 1, where a cap of 20 or 50 moves them by under 1e-2, and a
+#: kernel without the cap would pass; at 24 they reach tens, the cap
+#: changes them and the softmax is peaked (outputs O(1))
+CAP_Q_SCALE = 24.0
 #: the serving path: granite-8b, B prompts of P tokens, G generated
 SERVE_ARCH = "granite-8b"
 SERVE_B, SERVE_P, SERVE_G, SERVE_REPLICAS = 4, 2048, 16, 2
 #: the attention kernel's shape on that path (bf16, causal)
 FLASH_MAIN = ((SERVE_B, SERVE_P, SERVE_P, 32, 8, 128), "bfloat16", True, 0,
               0.0)
+#: calls of the launcher timed after each serving phase's first: the
+#: phase's prefill ms and decode ms a step are their medians (phase 14's
+#: one-card shares read them), the first call's numbers kept beside them
+WARM_CALLS = 5
 #: bound on |logits| differences in the serve checks: the reference's own
 #: prefill/decode tolerance (tests/test_models.py: 0.12), held as a plain
 #: absolute bound
@@ -318,6 +363,16 @@ VLM_ARCH = "pixtral-12b"
 AUDIO_ARCH = "whisper-small"
 AUDIO_P = 224
 ENCDEC_LAYER_TOL = 1e-4
+#: phases 12a and 12b: the two dense models not served before, at full
+#: width and depth.  gemma2-9b takes GEMMA_B prompts of GEMMA_P tokens:
+#: 8192 is its global attention span (arXiv:2408.00118, Table 1), so the
+#: window of 4096 on its local layers masks half the keys of the last
+#: queries, and decode reads their 4096-slot rings after they wrapped;
+#: qwen2.5-14b takes phase 5's traffic
+GEMMA_ARCH, GEMMA_B, GEMMA_P = "gemma2-9b", 2, 8192
+QWEN_ARCH = "qwen2.5-14b"
+#: the serving phases' tags, whose records phase 14 bounds
+SERVE_TAGS = ("serve", "moe", "ssm", "vlm", "audio", "gemma", "qwen")
 #: phases 11 and 12: where two bf16 paths' logits differ by more than
 #: LOGIT_ATOL, how much farther from the float32 computation than the
 #: other path the path under test may be, in mean |diff| (relative)
@@ -1686,12 +1741,18 @@ def activity_phase(seed: int, smi: str) -> dict:
 
 
 # ------------------------------------------------- phase 3: flash attention
-def flash_qkv(shape, dtype, seed: int, dev):
-    B, Sq, Sk, H, KV, D = shape
+def flash_qkv(case, seed: int, dev):
+    """q, k, v of ``case`` from N(0, 1); with a softcap, q times
+    ``CAP_Q_SCALE``, so that the scores reach tens and the cap changes
+    them (``flash_check`` drops it to prove that)."""
+    (B, Sq, Sk, H, KV, D), dtype, _causal, _window, cap = case
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = getattr(torch, dtype)
-    return tuple(torch.randn(s, generator=gen, device=dev).to(dt)
-                 for s in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D)))
+    q, k, v = (torch.randn(s, generator=gen, device=dev)
+               for s in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D)))
+    if cap:
+        q = q * CAP_Q_SCALE
+    return q.to(dt), k.to(dt), v.to(dt)
 
 
 def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
@@ -1727,10 +1788,12 @@ def takes(kernel: str, case) -> bool:
 
 def flash_check(kernel: str, case, seed: int, dev) -> float:
     """``kernel`` against the plain version on one case; returns the max
-    |difference|."""
+    |difference| and, for each of the case's softcap and window, the
+    share of elements beyond the tolerance when the kernel is launched
+    without it (a planted fault the check must see: above 0)."""
     from repro_torch.kernels import flash_attention as fa
     shape, dtype, causal, window, cap = case
-    q, k, v = flash_qkv(shape, dtype, seed, dev)
+    q, k, v = flash_qkv(case, seed, dev)
     counter = "launches_sm90" if kernel == fa.SM90 else "launches_simt"
     before = getattr(fa, counter)
     got = fa.launch_kernel(kernel, q, k, v, causal=causal, window=window,
@@ -1743,32 +1806,52 @@ def flash_check(kernel: str, case, seed: int, dev) -> float:
     want = fa.flash_attention_reference(q, k, v, causal=causal,
                                         window=window, cap=cap)
     tol = FLASH_TOL[dtype]
-    err = (got.float() - want.float()).abs()
-    worst = float(err.max())
-    bad = int((err > tol + tol * want.float().abs()).sum())
+
+    def beyond(out):
+        return (out.float() - want.float()).abs() > \
+            tol + tol * want.float().abs()
+
+    worst = float((got.float() - want.float()).abs().max())
+    bad = int(beyond(got).sum())
     check(bad == 0 and bool(torch.isfinite(got).all()),
           f"{kernel} differs from its plain version at {case}: "
           f"{bad} elements beyond rtol=atol={tol}, max |err| {worst}")
     if shape == (1, 64, 16, 2, 1, 32):
         check(bool((got[:, 20:] == 0).all()),
               f"{kernel}: fully masked rows are not 0")
-    return worst
+    caught = {}
+    for what, kw in (("cap", {"cap": 0.0}), ("window", {"window": 0})):
+        if not (cap if what == "cap" else window):
+            continue
+        wrong = fa.launch_kernel(kernel, q, k, v, **{
+            "causal": causal, "window": window, "cap": cap, **kw})
+        caught[what] = float(beyond(wrong).float().mean())
+        check(caught[what] > 0,
+              f"{kernel} launched without the {what} passes the check at "
+              f"{case}: the check cannot see the {what}")
+        del wrong
+    return worst, caught
 
 
 def flash_phase(seed: int) -> dict:
     from repro_torch.kernels import flash_attention as fa
     dev = DEVICE
     out = {}
-    cases = FLASH_CASES + [FLASH_MAIN] + FLASH_EXTRA + FLASH_ENCDEC
+    cases = FLASH_CASES + [FLASH_MAIN] + FLASH_EXTRA + FLASH_ENCDEC + \
+        FLASH_DENSE
     #: the shapes timed beside the serving path's, by their key in ``out``
     timed = {"moe_shape": FLASH_MOE, "vlm_shape": FLASH_VLM,
-             "enc_shape": FLASH_ENC, "dec_shape": FLASH_DEC}
-    errs = {}
+             "enc_shape": FLASH_ENC, "dec_shape": FLASH_DEC,
+             "gemma_shape": FLASH_GEMMA,
+             "gemma_global_shape": FLASH_GEMMA_GLOBAL,
+             "qwen_shape": FLASH_QWEN}
+    errs, caught = {}, {}
     for kernel in (fa.SM90, fa.SIMT):
         worst = {"float32": 0.0, "bfloat16": 0.0}
         taken = [c for c in cases if takes(kernel, c)]
         for i, case in enumerate(taken):
-            err = flash_check(kernel, case, seed + i, dev)
+            err, caught[kernel, case] = flash_check(kernel, case, seed + i,
+                                                    dev)
             worst[case[1]] = max(worst[case[1]], err)
             errs[kernel, case] = err
         main_err = errs[kernel, FLASH_MAIN]
@@ -1784,46 +1867,77 @@ def flash_phase(seed: int) -> dict:
         log(f"kernels: {kernel} at the non-causal and head_dim 160 cases: "
             + ", ".join(f"{list(c[0])} causal={c[2]} {errs[kernel, c]:.3g}"
                         for c in FLASH_ENCDEC))
+        log(f"kernels: {kernel} at gemma2-9b's and qwen2.5-14b's prefill: "
+            + ", ".join(f"{list(c[0])} window={c[3]} cap={c[4]:g} "
+                        f"{errs[kernel, c]:.3g}" for c in FLASH_DENSE))
+        log(f"kernels: {kernel} launched without the softcap or the window "
+            f"fails the check (q times {CAP_Q_SCALE:g} where capped; share "
+            "of elements beyond the tolerance): "
+            + ", ".join(f"{list(c[0])} {c[1]} window={c[3]} cap={c[4]:g} "
+                        + " ".join(f"no {w} {f:.4f}"
+                                   for w, f in caught[kernel, c].items())
+                        for c in taken if caught[kernel, c]))
     for kernel, t in time_flash(FLASH_MAIN, seed, dev).items():
         out[kernel].update(t)
     for name, case in timed.items():
         out[name] = time_flash(case, seed, dev)
         for kernel in (fa.SM90, fa.SIMT):
             out[name][kernel]["max_abs_err"] = errs[kernel, case]
+            out[name][kernel]["planted_faults"] = \
+                caught[kernel, case]
     return out
 
 
 def time_flash(case, seed: int, dev) -> dict:
-    """Both attention kernels at one bf16 shape (causal or not, as the
-    case says), timed in turns with ``scaled_dot_product_attention`` on
-    the same tensors (the yardstick; the port never calls it), with the
-    plain version's time and the bound; one dict per kernel."""
+    """Both attention kernels at one bf16 shape (causal or not, windowed
+    and soft-capped as the case says), timed in turns with the library
+    call that computes the same function on the same tensors (the
+    yardstick; the port never calls it), with the plain version's time
+    and the bound; one dict per kernel.  The library call is
+    ``scaled_dot_product_attention``; with a softcap it is
+    ``flex_attention`` (compiled) with the cap as its ``score_mod`` and
+    the causal mask and window as its block mask, and SDPA without the
+    cap is timed beside it (``sdpa_without_cap_ms``; a window goes to it
+    as a dense boolean mask over kv heads repeated to the q heads, which
+    takes it off its flash path)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import flash_attention as fa
-    (B, S, _, H, KV, D), _, causal, *_ = case
-    q, k, v = flash_qkv(case[0], "bfloat16", seed, dev)
+    (B, S, Sk, H, KV, D), _, causal, window, cap = case
+    q, k, v = flash_qkv(case, seed, dev)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window:
+        qp = torch.arange(S, device=dev)[:, None]
+        kp = torch.arange(Sk, device=dev)[None, :]
+        mask = (kp <= qp) & (kp > qp - window)
+        kr, vr = (x.repeat_interleave(H // KV, dim=1) for x in (kt, vt))
 
-    def library():
-        return torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True)
-
-    lib_err = float((library().transpose(1, 2).float()
-                     - fa.flash_attention_reference(q, k, v, causal=causal)
-                     .float()).abs().max())
-    fns = {fa.SM90: lambda: fa.launch_kernel(fa.SM90, q, k, v,
-                                             causal=causal),
-           fa.SIMT: lambda: fa.launch_kernel(fa.SIMT, q, k, v,
-                                             causal=causal),
-           "library": library}
+        def sdpa_call():
+            return sdpa(qt, kr, vr, attn_mask=mask)
+    else:
+        def sdpa_call():
+            return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    fns = {fa.SM90: lambda: fa.launch_kernel(fa.SM90, q, k, v, causal=causal,
+                                             window=window, cap=cap),
+           fa.SIMT: lambda: fa.launch_kernel(fa.SIMT, q, k, v, causal=causal,
+                                             window=window, cap=cap),
+           "library": flex_call(qt, kt, vt, causal, window, cap)
+           if cap else sdpa_call}
+    if cap:
+        fns["sdpa"] = sdpa_call
+    want = fa.flash_attention_reference(q, k, v, causal=causal,
+                                        window=window, cap=cap).float()
+    lib_err = float((fns["library"]().transpose(1, 2).float() - want)
+                    .abs().max())
+    del want
     # in turns: wgmma, CUDA cores, library, library, CUDA cores, wgmma;
     # each launch between its own two events, and 20 launches back to back
     # between two events (the host's launch cost then hides behind the card)
     samples = {name: [] for name in fns}
     turns = {name: [] for name in fns}
     b2b = {name: [] for name in fns}
-    for order in ((fa.SM90, fa.SIMT, "library"),
-                  ("library", fa.SIMT, fa.SM90)):
+    names = tuple(fns)
+    for order in (names, names[::-1]):
         for name in order:
             times = cuda_times_ms(fns[name], runs=20)
             samples[name] += times
@@ -1838,8 +1952,11 @@ def time_flash(case, seed: int, dev) -> dict:
             torch.cuda.synchronize()
         device_ms[kernel] = device_busy_ms(prof, kernel) / 10
     plain_ms = cuda_median_ms(
-        lambda: fa.flash_attention_reference(q, k, v, causal=causal), runs=5)
+        lambda: fa.flash_attention_reference(q, k, v, causal=causal,
+                                             window=window, cap=cap), runs=5)
     (bound_ms, bound_by), flops, nbytes = flash_bound_ms(case)
+    yardstick = ("flex_attention (compiled) with the softcap as score_mod"
+                 if cap else "scaled_dot_product_attention")
     out = {}
     for kernel in (fa.SM90, fa.SIMT):
         out[kernel] = {
@@ -1847,32 +1964,75 @@ def time_flash(case, seed: int, dev) -> dict:
             "back_to_back_ms": b2b[kernel],
             "library_back_to_back_ms": b2b["library"],
             "device_ms": device_ms[kernel], "plain_ms": plain_ms,
-            "library_ms": ms["library"], "bound_ms": bound_ms,
+            "library_ms": ms["library"],
+            "library_call": yardstick,
+            "sdpa_without_cap_ms": ms["sdpa"] if cap else None,
+            "bound_ms": bound_ms,
             "bound_by": bound_by, "flops": flops, "bytes": nbytes,
-            "shape": list(case[0]), "causal": causal}
+            "shape": list(case[0]), "causal": causal, "window": window,
+            "cap": cap}
         log(f"kernels: {kernel} bf16 B={B} S={S} H={H} KV={KV} D={D} "
-            f"causal={causal}: {ms[kernel]:.6f} ms (median of 40 launches by "
+            f"causal={causal} window={window} cap={cap:g}: "
+            f"{ms[kernel]:.6f} ms (median of 40 launches by "
             f"CUDA events; turn medians {turns[kernel][0]:.6f} / "
             f"{turns[kernel][1]:.6f} ms; back to back {b2b[kernel][0]:.6f} / "
             f"{b2b[kernel][1]:.6f} ms; {device_ms[kernel]:.6f} ms device "
             f"time by torch.profiler), {bound_ms / ms[kernel]:.3f} of its "
-            f"bound, {ms['library'] / ms[kernel]:.3f} x "
-            f"scaled_dot_product_attention's speed")
+            f"bound, {ms['library'] / ms[kernel]:.3f} x {yardstick}'s "
+            f"speed")
     log(f"kernels: attention yardsticks at B={B} S={S} H={H} KV={KV} D={D} "
-        f"causal={causal}: "
-        f"plain version {plain_ms:.6f} ms, scaled_dot_product_attention "
+        f"causal={causal} window={window} cap={cap:g}: "
+        f"plain version {plain_ms:.6f} ms, {yardstick} "
         f"{ms['library']:.6f} ms (turn medians {turns['library'][0]:.6f} / "
         f"{turns['library'][1]:.6f}; back to back {b2b['library'][0]:.6f} / "
         f"{b2b['library'][1]:.6f}; max |diff| to the plain version "
         f"{lib_err:.3g}); bound {bound_ms:.6f} ms ({bound_by}: "
         f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
-    del q, k, v, qt, kt, vt
+    if cap:
+        log(f"kernels: beside it, scaled_dot_product_attention without the "
+            f"softcap "
+            + ("under a dense boolean mask for the window (off its flash "
+               "path) " if window else "(is_causal, on its flash path) ")
+            + f"{ms['sdpa']:.6f} ms (turn medians {turns['sdpa'][0]:.6f} / "
+            f"{turns['sdpa'][1]:.6f})")
+    del q, k, v, qt, kt, vt, sdpa_call, fns
     torch.cuda.empty_cache()
     return out
 
 
+def flex_call(qt, kt, vt, causal: bool, window: int, cap: float):
+    """One compiled ``flex_attention`` call on (B, H, S, D) tensors with
+    gemma2's softcap as its ``score_mod`` (after the scale, as the
+    kernel's) and the causal mask and window as its block mask: the
+    library call that computes the kernel's function where SDPA cannot.
+    Returns the call, compiled and warmed up."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    def score_mod(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, qi, ki):
+        ok = ki <= qi if causal else ki >= 0
+        return ok & (ki > qi - window) if window else ok
+
+    block_mask = create_block_mask(mask_mod, None, None, qt.shape[2],
+                                   kt.shape[2], device=qt.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+
+    def call():
+        return flex(qt, kt, vt, score_mod=score_mod, block_mask=block_mask,
+                    enable_gqa=True)
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    log(f"kernels: flex_attention compiled and run once in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return call
+
+
 # ------------------------------------------------------------ phase 5: serve
-def serve_phase(seed: int) -> dict:
+def serve_phase(seed: int, smi: str) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve as S
     from repro_torch.models import transformer as T
@@ -1883,6 +2043,7 @@ def serve_phase(seed: int) -> dict:
     out, launches, slot_launches = serve_family(cfg, params, tokens,
                                                 cfg.n_layers, "serve")
     res.update(serve_numbers(out))
+    res.update(warm_serve(cfg, params, tokens, res, "serve", smi))
     res.update({"attention_launches": launches,
                 "fid_slots_launches": slot_launches,
                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
@@ -2398,15 +2559,19 @@ def ssd_card_vs_cpu(cfg, p: dict, batch: int, seq: int, seed: int) -> dict:
 
 class MaskTally:
     """While active, counts the calls of the attention kernel's wrapper
-    from the model (``kernels.ops``) by its ``causal`` argument."""
+    from the model (``kernels.ops``) by its ``causal`` argument and by
+    its ``window``."""
 
     def __enter__(self):
         from repro_torch.kernels import ops
         self.calls = {True: 0, False: 0}
+        self.windows: dict = {}
         self._real = real = ops.flash_attention_bshd
 
         def wrapper(*args, **kw):
             self.calls[bool(kw["causal"])] += 1
+            window = int(kw["window"])
+            self.windows[window] = self.windows.get(window, 0) + 1
             return real(*args, **kw)
 
         ops.flash_attention_bshd = wrapper
@@ -2418,14 +2583,16 @@ class MaskTally:
 
 
 def serve_family(cfg, params, tokens, n_attn: int, tag: str, extras=None,
-                 n_noncausal: int = 0):
+                 n_noncausal: int = 0, windows=None):
     """Phase 5's serving run for another family: launches of each
     attention kernel counted from 0 (``n_attn`` wgmma launches, one per
-    attention layer, ``n_noncausal`` of them without a causal mask, and
-    none of the CUDA-core kernel) and of the ``fid_slots`` kernel (none:
-    serving routes no records), finite logits, well-formed tokens and
-    phase 5's invalidation counts.  Returns the run's output, the
-    attention launches by kernel and the ``fid_slots`` launches."""
+    attention layer, ``n_noncausal`` of them without a causal mask, by
+    window as ``windows`` maps a window to its calls (all of them with
+    none by default), and none of the CUDA-core kernel) and of the
+    ``fid_slots`` kernel (none: serving routes no records), finite
+    logits, well-formed tokens and phase 5's invalidation counts.
+    Returns the run's output, the attention launches by kernel and the
+    ``fid_slots`` launches."""
     from repro_torch.kernels import flash_attention as fa, stream_ops
     from repro_torch.launch import serve as S
     fa.launches = fa.launches_sm90 = fa.launches_simt = 0
@@ -2442,32 +2609,77 @@ def serve_family(cfg, params, tokens, n_attn: int, tag: str, extras=None,
           masks.calls[True] == n_attn - n_noncausal,
           f"{tag}: attention calls by causal mask {masks.calls}, not "
           f"{n_noncausal} without one")
+    windows = windows or ({0: n_attn} if n_attn else {})
+    check(masks.windows == windows, f"{tag}: attention calls by window "
+          f"{masks.windows}, not {windows}")
     # every call went to the wgmma kernel (checked above)
     out["noncausal_launches"] = {fa.SM90: masks.calls[False], fa.SIMT: 0}
+    out["launches_by_window"] = {fa.SM90: masks.windows, fa.SIMT: {}}
     check(slots == 0, f"{tag}: {slots} fid_slots launches while serving")
     logits, gen = out["prefill_logits"], out["generated"]
+    B = tokens.shape[0]
     check(bool(torch.isfinite(logits).all()), f"{tag}: logits not finite")
-    check(tuple(gen.shape) == (SERVE_B, SERVE_G) and
+    check(tuple(gen.shape) == (B, SERVE_G) and
           bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
           f"{tag}: generated tokens malformed: {tuple(gen.shape)}")
-    check(out["evicted_per_replica"] == [1] * SERVE_REPLICAS,
+    # the launcher's admin write changes prompt 2: cached where B > 2
+    evicted = int(B > 2)
+    check(out["evicted_per_replica"] == [evicted] * SERVE_REPLICAS,
           f"{tag}: evicted_per_replica {out['evicted_per_replica']}")
-    check(out["remaining_pages"] == [SERVE_B - 1] * SERVE_REPLICAS,
+    check(out["remaining_pages"] == [B - evicted] * SERVE_REPLICAS,
           f"{tag}: remaining_pages {out['remaining_pages']}")
     return out, launches, slots
 
 
 def serve_numbers(out, prompt_len: int = SERVE_P) -> dict:
+    """One serving call's times and rates."""
     steps = out["decode_steps"]
+    B = out["generated"].shape[0]
     return {"prefill_ms": out["prefill_s"] * 1e3,
-            "prompt_tokens_per_s": SERVE_B * prompt_len / out["prefill_s"],
+            "prompt_tokens_per_s": B * prompt_len / out["prefill_s"],
             "decode_ms_per_step": out["decode_s"] * 1e3 / steps,
-            "decode_tokens_per_s": SERVE_B * steps / out["decode_s"],
-            "generated_tokens_per_s": SERVE_B * SERVE_G
+            "decode_tokens_per_s": B * steps / out["decode_s"],
+            "generated_tokens_per_s": B * SERVE_G
             / (out["prefill_s"] + out["decode_s"]),
             "decode_steps": steps,
             "evicted_per_replica": out["evicted_per_replica"],
             "remaining_pages": out["remaining_pages"]}
+
+
+def warm_serve(cfg, params, tokens, first: dict, tag: str, smi: str,
+               extras=None) -> dict:
+    """WARM_CALLS more calls of the launcher after a phase's first
+    (``first``: that call's ``serve_numbers``), on the same inputs: each
+    time and rate becomes the median of the warm calls, the two times
+    with their min and max beside them; the first call's times stay
+    under ``first_call_*``.  One call can be an outlier, so phase 14's
+    one-card shares read these medians."""
+    from repro_torch.launch import serve as S
+    runs = []
+    for _ in range(WARM_CALLS):
+        out = S.serve(cfg, params, tokens, extras=extras, gen_len=SERVE_G,
+                      replicas=SERVE_REPLICAS)
+        runs.append(serve_numbers(out, tokens.shape[1]))
+        del out
+    res = {"warm_calls": WARM_CALLS,
+           "first_call_prefill_ms": first["prefill_ms"],
+           "first_call_decode_ms_per_step": first["decode_ms_per_step"]}
+    for key in ("prefill_ms", "decode_ms_per_step", "prompt_tokens_per_s",
+                "decode_tokens_per_s", "generated_tokens_per_s"):
+        res[key] = statistics.median(r[key] for r in runs)
+    for key in ("prefill_ms", "decode_ms_per_step"):
+        res[key + "_min_max"] = [min(r[key] for r in runs),
+                                 max(r[key] for r in runs)]
+    log(f"{tag}: {res['warm_calls']} warm calls of the launcher: prefill "
+        f"median {res['prefill_ms']:.3f} ms (min-max "
+        f"{res['prefill_ms_min_max'][0]:.3f}-"
+        f"{res['prefill_ms_min_max'][1]:.3f}; first call "
+        f"{res['first_call_prefill_ms']:.3f}), decode median "
+        f"{res['decode_ms_per_step']:.3f} ms a step (min-max "
+        f"{res['decode_ms_per_step_min_max'][0]:.3f}-"
+        f"{res['decode_ms_per_step_min_max'][1]:.3f}; first call "
+        f"{res['first_call_decode_ms_per_step']:.3f}) [{smi}]")
+    return res
 
 
 def profiled_serve(cfg, params, tokens, n_attn: int, tag: str,
@@ -2622,6 +2834,7 @@ def moe_phase(seed: int, smi: str) -> dict:
     decode_dropped = sum(int((~k).sum()) for k in decode_keep)
     check(decode_dropped == 0, f"moe: decode dropped {decode_dropped} slots")
     res.update(serve_numbers(out))
+    res.update(warm_serve(cfg, params, tokens, res, "moe", smi))
     res.update({"attention_launches": launches,
                 "fid_slots_launches": slot_launches,
                 "peak_memory_gb": peak_gb,
@@ -2757,6 +2970,7 @@ def ssm_phase(seed: int, smi: str) -> dict:
     out, launches, slot_launches = serve_family(cfg, params, tokens, 0,
                                                 "ssm")
     res.update(serve_numbers(out))
+    res.update(warm_serve(cfg, params, tokens, res, "ssm", smi))
     res.update({"attention_launches": launches,
                 "fid_slots_launches": slot_launches,
                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -2886,39 +3100,45 @@ def hold_near_fp32(what: str, got, plain, truth) -> dict:
     return out
 
 
-def embeds_phase(arch: str, prompt_len: int, n_attn: int, n_noncausal: int,
-                 tag: str, seed: int, smi: str) -> dict:
-    """Phases 11 and 12, the families that take embeddings beside their
-    tokens: ``arch`` at full width and depth on phase 5's path, with the
-    inputs its launcher draws (``make_batch``: image-patch or frame
-    embeddings), ``SERVE_B`` prompts of ``prompt_len`` tokens; launch
-    counts, the profiled prefill and serving run, flash-vs-naive and
-    decode-vs-prefill logits, and an encoder-decoder's layer check."""
+def family_phase(arch: str, batch_size: int, prompt_len: int, n_attn: int,
+                 tag: str, seed: int, smi: str, n_noncausal: int = 0,
+                 windows=None) -> dict:
+    """Phases 11, 12, 12a and 12b: ``arch`` at full width and depth on
+    phase 5's path, with the inputs its launcher draws (``make_batch``:
+    the tokens, and a VLM's image-patch or an encoder-decoder's frame
+    embeddings), ``batch_size`` prompts of ``prompt_len`` tokens; launch
+    counts (``serve_family``: ``n_noncausal`` calls without a causal
+    mask, ``windows`` by window), warm calls' medians, the profiled
+    prefill and serving run, flash-vs-naive and decode-vs-prefill logits
+    held by ``hold_near_fp32``, and an encoder-decoder's layer check."""
     from repro_torch.launch import serve as S
     from repro_torch.models import transformer as T
     cfg, params, res = family_params(arch, seed, tag)
-    dev, P = DEVICE, prompt_len
-    res["prompt_len"] = P
-    batch = S.make_batch(cfg, SERVE_B, P, seed=seed, device=dev)
+    dev, B, P = DEVICE, batch_size, prompt_len
+    res.update({"batch": B, "prompt_len": P})
+    batch = S.make_batch(cfg, B, P, seed=seed, device=dev)
     tokens = batch.pop("tokens")
     res["extra_inputs"] = {k: list(v.shape) for k, v in batch.items()}
     torch.cuda.reset_peak_memory_stats()
     out, launches, slot_launches = serve_family(
         cfg, params, tokens, n_attn, tag, extras=batch,
-        n_noncausal=n_noncausal)
+        n_noncausal=n_noncausal, windows=windows)
     res.update(serve_numbers(out, P))
     res.update({"attention_launches": launches,
                 "noncausal_launches": out["noncausal_launches"],
+                "launches_by_window": out["launches_by_window"],
                 "fid_slots_launches": slot_launches,
                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
                 "weights_read_ms": res["weight_bytes"] / HBM_BYTES_PER_S
                 * 1e3})
-    log(f"{tag}: prefill {SERVE_B} x {P} tokens with {res['extra_inputs']} "
+    res.update(warm_serve(cfg, params, tokens, res, tag, smi, batch))
+    log(f"{tag}: prefill {B} x {P} tokens with {res['extra_inputs']} "
         f"{res['prefill_ms']:.3f} ms ({res['prompt_tokens_per_s']:.1f} prompt "
         f"tokens/s), decode {res['decode_ms_per_step']:.3f} ms per step over "
         f"{res['decode_steps']} steps ({res['decode_tokens_per_s']:.1f} "
         f"generated tokens/s); attention launches {launches} (without a "
-        f"causal mask {out['noncausal_launches']}), fid_slots "
+        f"causal mask {out['noncausal_launches']}; by window "
+        f"{out['launches_by_window']}), fid_slots "
         f"{slot_launches}; invalidation evicted {out['evicted_per_replica']}, "
         f"remaining pages {out['remaining_pages']}; peak memory "
         f"{res['peak_memory_gb']:.3f} GB [{smi}]")
@@ -2937,13 +3157,16 @@ def embeds_phase(arch: str, prompt_len: int, n_attn: int, n_noncausal: int,
         del naive
         torch.cuda.empty_cache()
         # one decode step at position P after a prefill of P tokens, against
-        # the last logits of a prefill of P + 1 tokens
-        ext = S.make_tokens(cfg, SERVE_B, P + 1, seed=seed + 1, device=dev)
+        # the last logits of a prefill of P + 1 tokens (a sliding-window
+        # layer's ring of slots has wrapped where P reaches its window)
+        ext = S.make_tokens(cfg, B, P + 1, seed=seed + 1, device=dev)
         full, _ = T.prefill(params, cfg, ext, impl="flash", **batch)
         _, cache = T.prefill(params, cfg, ext[:, :P],
                              max_seq=P + 1 + DECODE_PROFILE_STEPS,
                              impl="flash", **batch)
-        pos = torch.full((SERVE_B,), P, dtype=torch.int32, device=dev)
+        res["ring_slots"] = sorted({c["k"].shape[1] for c in cache
+                                    if "k" in c})
+        pos = torch.full((B,), P, dtype=torch.int32, device=dev)
         step, cache = T.decode_step(params, cfg, ext[:, P:], cache, pos)
         dvp = hold_near_fp32(f"{tag}: decode at position {P} vs a "
                              f"{P + 1}-token prefill", step[:, 0], full,
@@ -2963,7 +3186,9 @@ def embeds_phase(arch: str, prompt_len: int, n_attn: int, n_noncausal: int,
             f"{r['max_abs_to_fp32']:.6f} / mean {r['mean_abs_to_fp32']:.6f}, "
             f"the other path's max {r['plain_max_abs_to_fp32']:.6f} / mean "
             f"{r['plain_mean_abs_to_fp32']:.6f}")
-    log(f"{tag}: |logits| up to {res['max_abs_logit']:.3f}")
+    log(f"{tag}: |logits| up to {res['max_abs_logit']:.3f}; decode caches "
+        f"of {res['ring_slots']} slots, position {P} written to slot "
+        f"{[P % n for n in res['ring_slots']]}")
     log(f"{tag}: decode alone (profiled, {DECODE_PROFILE_STEPS} steps): "
         f"{res['decode_profiled_wall_ms_per_step']:.3f} ms wall per step, "
         f"device busy {res['decode_device_busy_ms_per_step']:.3f} ms (idle "
@@ -2985,6 +3210,16 @@ def embeds_phase(arch: str, prompt_len: int, n_attn: int, n_noncausal: int,
     del params, out, logits, batch
     torch.cuda.empty_cache()
     return res
+
+
+def dense_windows(cfg) -> dict:
+    """A prefill's attention calls by window: one per layer, at the
+    layer's window (0: global)."""
+    out: dict = {}
+    for l in range(cfg.n_layers):
+        w = cfg.layer_window(l % cfg.scan_period)
+        out[w] = out.get(w, 0) + 1
+    return out
 
 
 # ----------------------------------------------- phase 13: the sharded path
@@ -3355,8 +3590,10 @@ def measured_rates(smi: str) -> dict:
 
 def roofline_phase(smi: str, measured: dict) -> dict:
     """Phase 14: (a) the dry run on the fake 16x16 mesh, (b) the one-card
-    bound of each measured step of phases 5 and 8-12, (c) the card's
-    rates.  ``measured`` maps a phase's tag to its record."""
+    bound of each measured step of phases 5, 8-12, 12a and 12b (the
+    serving phases' medians of their warm calls, ``warm_serve``; phase
+    8's median step), (c) the card's rates.  ``measured`` maps a phase's
+    tag to its record."""
     from repro_torch import configs as C
     from repro_torch.kernels import flash_attention as fa, stream_ops
     from repro_torch.models.config import ShapeConfig
@@ -3376,29 +3613,36 @@ def roofline_phase(smi: str, measured: dict) -> dict:
     out["dryrun_s"] = time.perf_counter() - t0
 
     bounds = []
-    for tag, arch, prompt in (("serve", SERVE_ARCH, SERVE_P),
-                              ("moe", MOE_ARCH, SERVE_P),
-                              ("ssm", SSM_ARCH, SERVE_P),
-                              ("vlm", VLM_ARCH, SERVE_P),
-                              ("audio", AUDIO_ARCH, AUDIO_P)):
-        cfg, res = C.get_config(arch), measured[tag]
-        for kind, seq, ms in (
-                ("prefill", prompt, res["prefill_ms"]),
+    for tag in SERVE_TAGS:
+        res = measured[tag]
+        arch, B, prompt = res["arch"], res["batch"], res["prompt_len"]
+        cfg = C.get_config(arch)
+        for kind, seq, key in (
+                ("prefill", prompt, "prefill_ms"),
                 # decode reads the whole cache: prompt + generated slots
-                ("decode", prompt + SERVE_G, res["decode_ms_per_step"])):
+                ("decode", prompt + SERVE_G, "decode_ms_per_step")):
             bounds.append({"phase": tag, "arch": arch, "kind": kind,
+                           "batch": B, "seq": seq,
+                           "measured_min_max_ms": res[key + "_min_max"],
+                           "warm_calls": res["warm_calls"],
+                           "first_call_ms": res["first_call_" + key],
                            **one_card_bound(cfg, ShapeConfig(
-                               kind, seq, SERVE_B, kind), 1, ms)})
+                               kind, seq, B, kind), 1, res[key])})
     tr = measured["train"]
     bounds.append({"phase": "train", "arch": TRAIN_ARCH, "kind": "train",
                    **one_card_bound(C.get_config(TRAIN_ARCH), ShapeConfig(
                        "train", TRAIN_SEQ, TRAIN_BATCH, "train"),
                        TRAIN_HP["n_micro"], tr["step_ms_median"])})
     for b in bounds:
+        spread = (f" (median of {b['warm_calls']} warm calls, min-max "
+                  f"{b['measured_min_max_ms'][0]:.4f}-"
+                  f"{b['measured_min_max_ms'][1]:.4f}; first call "
+                  f"{b['first_call_ms']:.4f})" if "warm_calls" in b else
+                  " (median of the timed steps)")
         log(f"roofline: {b['phase']} {b['arch']} {b['kind']}: one-card "
             f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
             f"({b['model_flops']:.6g} model FLOPs, {b['hbm_bytes']:.6g} "
-            f"bytes) against {b['measured_ms']:.4f} ms measured "
+            f"bytes) against {b['measured_ms']:.4f} ms measured{spread} "
             f"({100 * b['bound_share']:.3f} %); model-FLOP share "
             f"{100 * b['model_flop_share_bf16']:.4f} % of 989 TFLOP/s "
             f"[{smi}]")
@@ -3456,25 +3700,45 @@ def main() -> int:
     log(f"build: {len(built)} sources in {time.perf_counter() - t0:.3f} s "
         "(one nvcc each, in parallel)")
 
-    k = kernel_phase(args.seed)
-    fl = flash_phase(args.seed)
-    main = main_path_phase(args.seed)
-    sv = serve_phase(args.seed)
-    wire = wire_phase(args.seed, smi)
-    act = activity_phase(args.seed, smi)
-    tr = train_phase(args.seed, smi)
-    mo = moe_phase(args.seed, smi)
-    sm = ssm_phase(args.seed, smi)
+    phase_s = {}
+
+    def timed(name, fn, *a, **kw):
+        # each phase's seconds, so that a run near the time limit shows
+        # which phase to cut
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        phase_s[name] = round(time.perf_counter() - t, 1)
+        log(f"time: {name} {phase_s[name]} s")
+        return out
+
+    k = timed("kernels", kernel_phase, args.seed)
+    fl = timed("flash", flash_phase, args.seed)
+    main = timed("main", main_path_phase, args.seed)
+    sv = timed("serve", serve_phase, args.seed, smi)
+    wire = timed("wire", wire_phase, args.seed, smi)
+    act = timed("activity", activity_phase, args.seed, smi)
+    tr = timed("train", train_phase, args.seed, smi)
+    mo = timed("moe", moe_phase, args.seed, smi)
+    sm = timed("ssm", ssm_phase, args.seed, smi)
     vlm_layers = C.get_config(VLM_ARCH).n_layers
     audio = C.get_config(AUDIO_ARCH)
-    vl = embeds_phase(VLM_ARCH, SERVE_P, vlm_layers, 0, "vlm",
-                            args.seed, smi)
-    au = embeds_phase(AUDIO_ARCH, AUDIO_P,
-                            audio.n_encoder_layers + audio.n_layers,
-                            audio.n_encoder_layers, "audio", args.seed, smi)
-    ms = mesh_phase(args.seed, smi, sv, tr)
-    rl = roofline_phase(smi, {"serve": sv, "moe": mo, "ssm": sm, "vlm": vl,
-                              "audio": au, "train": tr})
+    vl = timed("vlm", family_phase, VLM_ARCH, SERVE_B, SERVE_P, vlm_layers,
+               "vlm", args.seed, smi)
+    au = timed("audio", family_phase, AUDIO_ARCH, SERVE_B, AUDIO_P,
+               audio.n_encoder_layers + audio.n_layers, "audio",
+               args.seed, smi, n_noncausal=audio.n_encoder_layers)
+    gemma = C.get_config(GEMMA_ARCH)
+    gm = timed("gemma", family_phase, GEMMA_ARCH, GEMMA_B, GEMMA_P,
+               gemma.n_layers, "gemma", args.seed, smi,
+               windows=dense_windows(gemma))
+    qw = timed("qwen", family_phase, QWEN_ARCH, SERVE_B, SERVE_P,
+               C.get_config(QWEN_ARCH).n_layers, "qwen", args.seed, smi)
+    ms = timed("mesh", mesh_phase, args.seed, smi, sv, tr)
+    rl = timed("roofline", roofline_phase, smi,
+               {"serve": sv, "moe": mo, "ssm": sm, "vlm": vl, "audio": au,
+                "gemma": gm, "qwen": qw, "train": tr})
+    log(f"time: phases {json.dumps(phase_s)}, "
+        f"{sum(phase_s.values()):.1f} s in all")
     at = k["sizes"][BATCH]
     kernels = {"kernels": [{
         "name": "fid_slots",
@@ -3494,6 +3758,8 @@ def main() -> int:
         "ssm_launches": sm["fid_slots_launches"],
         "vlm_launches": vl["fid_slots_launches"],
         "audio_launches": au["fid_slots_launches"],
+        "gemma_launches": gm["fid_slots_launches"],
+        "qwen_launches": qw["fid_slots_launches"],
         "mesh_launches": ms["serve"]["fid_slots_launches"],
         "roofline_launches": rl["launches"]["fid_slots"],
         "max_abs_err": k["max_abs_err"],
@@ -3528,6 +3794,8 @@ def main() -> int:
                               "ssm": sm["attention_launches"][kernel],
                               "vlm": vl["attention_launches"][kernel],
                               "audio": au["attention_launches"][kernel],
+                              "gemma": gm["attention_launches"][kernel],
+                              "qwen": qw["attention_launches"][kernel],
                               "mesh": ms["serve"]["attention_launches"][
                                   kernel],
                               "roofline": rl["launches"][kernel]},
@@ -3535,10 +3803,15 @@ def main() -> int:
         "mesh_launches": ms["serve"]["attention_launches"][kernel],
         # of them, the audio phase's encoder layers, with no causal mask
         "audio_noncausal_launches": au["noncausal_launches"][kernel],
+        # the gemma phase's prefill by window (local layers 4096)
+        "gemma_launches_by_window": gm["launches_by_window"][kernel],
         "moe_shape": fl["moe_shape"][kernel],
         "vlm_shape": fl["vlm_shape"][kernel],
         "enc_shape": fl["enc_shape"][kernel],
         "dec_shape": fl["dec_shape"][kernel],
+        "gemma_shape": fl["gemma_shape"][kernel],
+        "gemma_global_shape": fl["gemma_global_shape"][kernel],
+        "qwen_shape": fl["qwen_shape"][kernel],
         "turns_ms": fl[kernel]["turns_ms"],
         "back_to_back_ms": fl[kernel]["back_to_back_ms"],
         "library_back_to_back_ms": fl[kernel]["library_back_to_back_ms"],
@@ -3565,6 +3838,8 @@ def main() -> int:
     print(json.dumps({"ssm": sm}), flush=True)
     print(json.dumps({"vlm": vl}), flush=True)
     print(json.dumps({"audio": au}), flush=True)
+    print(json.dumps({"gemma": gm}), flush=True)
+    print(json.dumps({"qwen": qw}), flush=True)
     print(json.dumps({"mesh": ms}), flush=True)
     print(json.dumps({"roofline": rl}), flush=True)
     print(json.dumps(kernels), flush=True)

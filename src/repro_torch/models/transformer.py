@@ -59,7 +59,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..runtime.sharding import (at_use, current_rules, full,
                                 grad_placed_as, is_dtensor, keep_whole, like,
-                                lshard, use_rules)
+                                lshard, use_rules,
+                                vocab_parallel_cross_entropy)
 from . import layers as L
 from . import ssd as S
 from .config import ModelConfig
@@ -523,17 +524,26 @@ def forward(params, cfg: ModelConfig, tokens, *, frames=None,
 
 
 # -------------------------------------------------------------------- loss
-def loss_fn(params, cfg: ModelConfig, tokens, labels, **fw_kw):
-    """Mean next-token cross-entropy (log-sum-exp minus the label's
-    logit) plus the auxiliary loss: ``(total, (loss, aux))``."""
-    logits, aux = forward(params, cfg, tokens, **fw_kw)
-    labels = lshard(labels, "batch", None)
+def token_losses(logits, labels):
+    """Each position's cross entropy (log-sum-exp minus the label's
+    logit), (B, S).  DTensor logits under rules take the vocab-parallel
+    path (``sharding.vocab_parallel_cross_entropy``: a max and two sums
+    over the vocabulary's ranks, as XLA reduces the reference's; with
+    the vocabulary whole, the local reductions alone); left to DTensor,
+    ``logsumexp`` would gather every row whole."""
+    if is_dtensor(logits):
+        return vocab_parallel_cross_entropy(
+            logits, lshard(labels, "batch", None))
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])
-    # under rules: the label logits summed over the vocab's ranks here,
-    # while the gather's masked partial result keeps its shape
-    ll = lshard(ll, "batch", "seq", None)[..., 0]
-    loss = torch.mean(lse - ll)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return lse - ll
+
+
+def loss_fn(params, cfg: ModelConfig, tokens, labels, **fw_kw):
+    """Mean next-token cross-entropy (``token_losses``) plus the
+    auxiliary loss: ``(total, (loss, aux))``."""
+    logits, aux = forward(params, cfg, tokens, **fw_kw)
+    loss = torch.mean(token_losses(logits, labels))
     return loss + aux, (loss, aux)
 
 

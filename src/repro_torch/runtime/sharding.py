@@ -290,6 +290,80 @@ def shard_block(mesh, placements, dim: int) -> Tuple[int, int]:
     return block, n_blocks
 
 
+class _VocabParallelCE(torch.autograd.Function):
+    """One rank's part of the cross entropy of logits split over the
+    vocabulary (Megatron's): ``x`` (..., V_local) holds columns
+    ``[offset, offset + V_local)``, ``labels`` (...) the global label
+    ids, ``groups`` the process groups of the mesh dimensions that split
+    the vocabulary.  The forward all-reduces three float32 vectors a
+    token (the max of the local log-sum-exps, the sum of their
+    exponentials shifted by it, and the label logit, which one rank
+    holds); the backward is local.  On one rank every all-reduce is the
+    identity and ``lse`` is the local ``logsumexp`` plus ``log(1) = 0``,
+    so the values and the gradient are those autograd gives for
+    ``logsumexp`` minus ``gather``, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x, labels, offset: int, groups):
+        import torch.distributed as dist
+        lse_r = torch.logsumexp(x, dim=-1)
+        m = lse_r.clone()
+        for g in groups:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+        s = torch.exp(lse_r - m)
+        for g in groups:
+            dist.all_reduce(s, group=g)
+        lse = m + torch.log(s)
+        local = labels.long() - offset
+        mine = (local >= 0) & (local < x.shape[-1])
+        idx = torch.where(mine, local, 0)[..., None]
+        ll = torch.where(mine, torch.gather(x, -1, idx)[..., 0], 0.0)
+        for g in groups:
+            dist.all_reduce(ll, group=g)
+        ctx.save_for_backward(x, lse, idx, mine)
+        return lse - ll
+
+    @staticmethod
+    def backward(ctx, g):
+        # logsumexp's backward (grad * exp(x - lse)), then the label
+        # logit's (-grad at the label's column, on the rank holding it)
+        x, lse, idx, mine = ctx.saved_tensors
+        grad = g[..., None] * torch.exp(x - lse[..., None])
+        grad.scatter_add_(-1, idx, torch.where(mine, -g, 0.0)[..., None])
+        return grad, None, None, None
+
+
+def vocab_parallel_cross_entropy(logits, labels):
+    """Per-token cross entropy, ``logsumexp(logits) - logits[label]``,
+    of DTensor ``logits`` (B, S, V) and integer ``labels`` (B, S),
+    through ``local_map``: each rank reduces its own columns and the
+    ranks that split the vocabulary combine a max and two sums, where
+    DTensor would gather every row of logits whole (B x S x V float32).
+    With the vocabulary whole, no rank combines anything.  Batch stays
+    sharded as the logits have it; returns (B, S), whole along the
+    vocabulary's mesh dimensions."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    vd = logits.ndim - 1
+    lp = [p if p in (Shard(0), Shard(vd)) else Replicate()
+          for p in logits.placements]
+    bp = [Shard(0) if p == Shard(0) else Replicate() for p in lp]
+    logits = logits.redistribute(mesh, lp)
+    labels = like(labels, logits).redistribute(mesh, bp)
+    block, n_blocks = shard_block(mesh, lp, vd)
+    V = logits.shape[vd]
+    if V % n_blocks:
+        raise ValueError(f"{V} vocabulary columns do not split evenly over "
+                         f"{n_blocks} ranks")
+    offset = block * (V // n_blocks)
+    groups = [mesh.get_group(i) for i, p in enumerate(lp) if p == Shard(vd)]
+    run = local_map(
+        lambda x, y: _VocabParallelCE.apply(x, y, offset, groups),
+        out_placements=bp, in_placements=(lp, bp), device_mesh=mesh)
+    return run(logits, labels)
+
+
 def map_local_heads(fn, q, k, v, *rest, **kw):
     """``fn(q, k, v, *rest, **kw)`` on each rank's local shard of DTensor
     q (B, Sq, H, D), k and v (B, Sk, KV, D), through ``local_map``.

@@ -8,14 +8,20 @@ D % 16 == 0, the CUDA-core kernel otherwise); each kernel must agree
 with the plain version within the reference's own tolerances
 (``tests/test_kernels.py``: 2e-5 for float32, 2e-2 for bfloat16) at
 every case of that file it takes, at the serving shape and at the extra
-bf16 cases (pixtral-12b's head_dim 160 and whisper-small's non-causal
-encoder among them), give 0 on fully masked rows, and refuse what it does not
-take, inputs that need a gradient included.  The activity consumers of
-``chip_smoke.py``'s phase 7 over a cluster routing on the card must end
-in the state they reach over one routing on the CPU, a training step
-on the card must agree with the same step on the CPU (phase 8), and one
-MoE layer and one SSD layer in float32 must agree between card and CPU
-(phases 9 and 10: routing equal, outputs within 1e-5 and 1e-4), and so
+bf16 cases (pixtral-12b's head_dim 160, whisper-small's non-causal
+encoder, and gemma2-9b's and qwen2.5-14b's prefills among them), with
+q scaled where a case has a softcap so that the cap matters, give 0 on
+fully masked rows, fail the same comparison when launched without the
+case's softcap or window, and refuse what it does not take, inputs that
+need a gradient included.  A decode step of gemma2-9b at full width and two
+layers, after its local layer's 4096-slot ring has wrapped, must agree
+with a prefill one token longer within 0.12 (phase 12a).  The activity
+consumers of ``chip_smoke.py``'s phase 7 over a cluster routing on the
+card must end in the state they reach over one routing on the CPU, a
+training step on the card must agree with the same step on the CPU
+(phase 8), and one MoE layer and one SSD layer in float32 must agree
+between card and CPU (phases 9 and 10: routing equal, outputs within
+1e-5 and 1e-4), and so
 must one encoder layer and one decoder layer of whisper-small (phase 12:
 within 1e-4).  On a one-rank NCCL mesh (phase 13) the sharded path runs
 the unsharded operations: a flash prefill and decode steps within 1e-3,
@@ -73,13 +79,22 @@ def card():
     return torch.device("cuda")
 
 
-def qkv(shape, dtype, seed, device):
+#: q's scale where a case has a softcap: with N(0, 1) inputs the scores
+#: stay near 1 and a cap of 20 or 50 barely moves them; at 24 they reach
+#: tens, the cap matters and the softmax is peaked (outputs O(1))
+CAP_Q_SCALE = 24.0
+
+
+def qkv(shape, dtype, seed, device, cap=0.0):
     B, Sq, Sk, H, KV, D = shape
     rng = np.random.default_rng(seed)
     dt = getattr(torch, dtype)
-    return tuple(torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
-                 .to(device=device, dtype=dt)
-                 for s in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D)))
+    q, k, v = (rng.standard_normal(s, dtype=np.float32)
+               for s in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D)))
+    if cap:
+        q = q * np.float32(CAP_Q_SCALE)
+    return tuple(torch.from_numpy(x).to(device=device, dtype=dt)
+                 for x in (q, k, v))
 
 
 def header_rows(n: int, seed: int) -> torch.Tensor:
@@ -168,7 +183,7 @@ def test_flash_kernel_matches_plain_version(card, case):
     """Through the wrapper: the kernel ``kernel_for`` picks, one launch,
     counted by the wrapper and by the kernel itself on the card."""
     shape, dtype, causal, window, cap = case
-    q, k, v = qkv(shape, dtype, seed=sum(shape), device=card)
+    q, k, v = qkv(shape, dtype, seed=sum(shape), device=card, cap=cap)
     kernel = fa.kernel_for(q.dtype, shape[5])
     before = (fa.launches, fa.launches_sm90, fa.launches_simt)
     on_card = {name: fa.device_launches(name) for name in (fa.SM90, fa.SIMT)}
@@ -201,7 +216,14 @@ EXTRA_CASES = [SERVING,
                ((4, 224, 224, 12, 12, 64), "bfloat16", True, 0, 0.0),
                ((2, 100, 1500, 4, 4, 64), "bfloat16", False, 0, 0.0),
                ((1, 64, 130, 4, 2, 160), "bfloat16", False, 0, 0.0)]
-KERNEL_CASES = [(kernel, case) for case in FLASH_CASES + EXTRA_CASES
+#: the prefills of phases 12a and 12b: gemma2-9b's 2 x 8192 tokens at
+#: head_dim 224 (padded to 256 in the wgmma kernel) with its softcap, on
+#: a local layer (window 4096) and a global one; qwen2.5-14b's GQA 40:8
+DENSE_CASES = [((2, 8192, 8192, 16, 8, 224), "bfloat16", True, 4096, 50.0),
+               ((2, 8192, 8192, 16, 8, 224), "bfloat16", True, 0, 50.0),
+               ((4, 2048, 2048, 40, 8, 128), "bfloat16", True, 0, 0.0)]
+KERNEL_CASES = [(kernel, case)
+                for case in FLASH_CASES + EXTRA_CASES + DENSE_CASES
                 for kernel in (fa.SM90, fa.SIMT) if takes(kernel, case)]
 
 
@@ -210,11 +232,63 @@ KERNEL_CASES = [(kernel, case) for case in FLASH_CASES + EXTRA_CASES
                          case_id(x))
 def test_each_flash_kernel_matches_plain_version(card, kernel, case):
     shape, dtype, causal, window, cap = case
-    q, k, v = qkv(shape, dtype, seed=sum(shape) + 1, device=card)
+    q, k, v = qkv(shape, dtype, seed=sum(shape) + 1, device=card, cap=cap)
     got = fa.launch_kernel(kernel, q, k, v, causal=causal, window=window,
                            cap=cap)
     torch.cuda.synchronize()
     check_against_plain(got, q, k, v, case)
+
+
+#: each case with a softcap or a window, by kernel, with the one it drops
+PLANTED = [(kernel, case, what) for kernel, case in KERNEL_CASES
+           for what in ("cap", "window") if case[4 if what == "cap" else 3]]
+
+
+@pytest.mark.parametrize("kernel,case,what", PLANTED,
+                         ids=lambda x: x if isinstance(x, str) else
+                         case_id(x))
+def test_check_fails_a_kernel_without_its_cap_or_window(card, kernel, case,
+                                                        what):
+    """A planted fault: the kernel launched without the case's softcap
+    (or window) must fail the comparison with the plain version that
+    the right launch passes."""
+    shape, dtype, causal, window, cap = case
+    q, k, v = qkv(shape, dtype, seed=sum(shape) + 1, device=card, cap=cap)
+    kw = {"causal": causal, "window": window, "cap": cap,
+          **({"cap": 0.0} if what == "cap" else {"window": 0})}
+    wrong = fa.launch_kernel(kernel, q, k, v, **kw)
+    torch.cuda.synchronize()
+    with pytest.raises(AssertionError):
+        check_against_plain(wrong, q, k, v, case)
+
+
+def test_gemma2_decode_after_the_ring_wraps(card):
+    """gemma2-9b at full width and two layers (layer 0 local, its window
+    of 4096 a ring of 4096 slots; layer 1 global): a prefill of 8192
+    tokens fills the ring with positions 4096-8191, and the decode step
+    at position 8192 writes slot 0 and attends over positions 4097-8192;
+    its logits against the last of an 8193-token prefill within 0.12,
+    the reference's prefill/decode tolerance."""
+    from repro_torch import configs as C
+    from repro_torch.launch import serve as S
+    from repro_torch.models import transformer as M
+    cfg = C.get_config("gemma2-9b").replace(n_layers=2)
+    window, P = cfg.sliding_window, 2 * cfg.sliding_window
+    params = M.init_params(cfg, seed=0, device=card)
+    ext = S.make_tokens(cfg, 1, P + 1, seed=1, device=card)
+    with torch.inference_mode():
+        full, _ = M.prefill(params, cfg, ext, impl="flash")
+        _, cache = M.prefill(params, cfg, ext[:, :P], max_seq=P + 1,
+                             impl="flash")
+        assert [c["k"].shape[1] for c in cache] == [window, P + 1]
+        slot0 = cache[0]["k"][:, 0].clone()
+        pos = torch.full((1,), P, dtype=torch.int32, device=card)
+        step, cache = M.decode_step(params, cfg, ext[:, P:], cache, pos)
+        assert not torch.equal(cache[0]["k"][:, 0], slot0)
+    diff = float((step[:, 0] - full).abs().max())
+    print(f"gemma2-9b decode at {P} after the ring wrapped vs a {P + 1}-"
+          f"token prefill: max |diff| {diff}")
+    assert diff <= 0.12
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(card):

@@ -345,15 +345,15 @@ def by_hand(cfg, kind):
     add("all-gather", f32 * V * d // tp + f32 * V * d + f32 * d
         + bf16 * d * V // tp)
     if kind == "train":
-        # the loss: the logits gathered whole over the vocabulary for the
-        # log-sum-exp (DTensor's plan; XLA reduces by a max and a sum),
-        # the label logits summed over it; the unembedding's gradient
+        # the loss, vocab-parallel: three all-reduces of a float32 a
+        # token over ``model`` (the max of the ranks' log-sum-exps, the
+        # sum of their shifted exponentials, the label logit) and none in
+        # its backward; the unembedding's gradient
         # reduce-scattered, the final norm's as a layer norm's, the
         # embedding's reduce-scattered over ``data`` then all-reduced
         # over ``model``; the gradient norm's scalars for the embedding,
         # unembedding and final norm (2 + 2 + 1) and the loss's mean
-        add("all-gather", f32 * T * V)
-        add("all-reduce", f32 * T)
+        add("all-reduce", f32 * T, 3)
         add("reduce-scatter", bf16 * d * V // (dp * tp))
         add("reduce-scatter", f32 * d // dp)
         add("all-reduce", f32 * d // dp)

@@ -18,7 +18,10 @@ layout (its ``init_params`` seeds by Python's salted ``hash``, so it
 differs per process).  Tolerances are the reference's own
 (``tests/test_sharding.py``: 5e-2 on the loss; 2e-5 on head padding),
 1e-2 relative on the grad norm, and 2e-5 in float32 where sharding must
-not change the numbers beyond the order of sums.
+not change the numbers beyond the order of sums.  The vocab-parallel
+cross entropy (logits split over the vocabulary) holds its float32 loss
+within 1.2e-4 of the reference's and its gradients within 1e-5 of each
+gradient's largest entry of the unsharded port's.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ from repro_torch.runtime import specs as PSp              # noqa: E402
 from test_torch_encdec import draw_extras                 # noqa: E402
 from test_torch_moe import ref_weights                    # noqa: E402
 import torch_ranks                                        # noqa: E402
-from torch_ranks_sharding import FAMILIES                 # noqa: E402
+from torch_ranks_sharding import CE_ARCHS, FAMILIES       # noqa: E402
 
 ARCHS = PC.list_archs()
 LOSS_ATOL = 5e-2
@@ -63,6 +66,13 @@ FP32_ATOL = 2e-5
 #: the families' float32 prefill and decode logits against the
 #: reference's (the families' own cross-package bound)
 FAMILY_FP32_ATOL = 1e-4
+#: the vocab-parallel cross entropy's float32 loss against the
+#: reference's single-device loss; and its gradients against the
+#: unsharded port's, relative to each gradient's largest entry: the same
+#: float32 sums in another order over the ranks' columns, and the
+#: table's entries sums over the batch's tokens, which cancel
+CE_LOSS_ATOL = 1.2e-4
+CE_GRAD_RTOL = 1e-5
 #: (B, S) of the families' inputs: the batch splits over the data axis
 FAMILY_BS = (4, 16)
 #: (B, S) of the cells: the second batch divides no DP axis of the
@@ -447,7 +457,9 @@ def ranks(tmp_path_factory):
     weights and inputs."""
     d = tmp_path_factory.mktemp("ranks")
     granite, qwen = RC.get_smoke("granite-8b"), RC.get_smoke("qwen2.5-14b")
-    wg, wq = ref_weights(granite, 11), ref_weights(qwen, 12)
+    gemma = RC.get_smoke("gemma2-9b")
+    wg, wq, wm = (ref_weights(granite, 11), ref_weights(qwen, 12),
+                  ref_weights(gemma, 13))
     # the reference's test_sharded_equals_unsharded_loss inputs
     rng = np.random.RandomState(1)
     tokens = rng.randint(0, granite.vocab_size, (4, 16)).astype(np.int32)
@@ -456,17 +468,30 @@ def ranks(tmp_path_factory):
     qt = rng.randint(0, qwen.vocab_size, (4, 16)).astype(np.int32)
     ql = rng.randint(0, qwen.vocab_size, (4, 16)).astype(np.int32)
     gqa = np.random.default_rng(2).integers(0, 256, (4, 16)).astype(np.int64)
+    gemma_tokens = np.random.RandomState(3).randint(
+        0, gemma.vocab_size, (4, 16)).astype(np.int64)
     torch_ranks.save_inputs(
         d, granite_tokens=tokens.astype(np.int64), qwen_tokens=qt,
-        qwen_labels=ql, gqa_tokens=gqa,
+        qwen_labels=ql, gqa_tokens=gqa, gemma_tokens=gemma_tokens,
         **{f"granite/{k}": a for k, a in torch_ranks.flatten(wg).items()},
         **{f"qwen/{k}": a for k, a in torch_ranks.flatten(wq).items()},
+        **{f"gemma/{k}": a for k, a in torch_ranks.flatten(wm).items()},
         **family_inputs())
     ref_loss, _ = jax.jit(lambda p: RT.loss_fn(
         p, granite, jnp.asarray(tokens), jnp.asarray(labels)))(
         jax.tree.map(jnp.asarray, wg))
+    # the ``ce`` case's losses, in float32 as the ranks compute them
+    ce_ref = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(RT, "COMPUTE_DTYPE", jnp.float32)
+        for key, cfg, w, t in (("granite", granite, wg, tokens),
+                               ("gemma", gemma, wm, gemma_tokens)):
+            t = jnp.asarray(t.astype(np.int32))
+            ce_ref[key] = float(RT.loss_fn(jax.tree.map(jnp.asarray, w),
+                                           cfg, t, jnp.roll(t, -1, 1))[1][0])
     out = torch_ranks.launch("torch_ranks_sharding.py", d)
     out["ref_loss"] = float(ref_loss)
+    out["ce_ref"] = ce_ref
     print(f"four ranks: {out['seconds']:.1f} s")
     return out
 
@@ -543,3 +568,29 @@ def test_family_under_rules_matches_the_reference(ranks, family_refs, arch):
     for name in ("prefill", "decode 0", "decode 1"):
         assert diffs[name] <= FAMILY_FP32_ATOL, name
         assert diffs[name + " vs plain"] <= FP32_ATOL, name
+
+
+@pytest.mark.parametrize("key", list(CE_ARCHS))
+def test_vocab_parallel_cross_entropy(ranks, key):
+    """The loss of logits split over the vocabulary (granite-8b's smoke
+    model, untied; gemma2-9b's, tied and soft-capped) in float32 on the
+    2x2 mesh, through the vocab-parallel cross entropy: the loss within
+    CE_LOSS_ATOL of the reference's single-device loss and within
+    FP32_ATOL of the port's unsharded one, and its gradients with
+    respect to the logits and to the unembedding table within
+    CE_GRAD_RTOL of the unsharded port's."""
+    case = ranks["ce"][key]
+    got, want = case["sharded"], case["plain"]
+    assert got["vocab_split"] and not want["vocab_split"]
+    diffs = {"to the reference": abs(got["loss"] - ranks["ce_ref"][key]),
+             "to the port": abs(got["loss"] - want["loss"])}
+    for name in ("logits_grad", "table_grad"):
+        a, b = np.asarray(got[name]), np.asarray(want[name])
+        diffs[name] = float(np.abs(a - b).max())
+        diffs[name + " max"] = float(np.abs(b).max())
+        np.testing.assert_allclose(a, b, rtol=CE_GRAD_RTOL,
+                                   atol=CE_GRAD_RTOL * np.abs(b).max(),
+                                   err_msg=name)
+    print(f"{CE_ARCHS[key][0]} vocab-parallel loss {got['loss']}: {diffs}")
+    assert diffs["to the reference"] <= CE_LOSS_ATOL
+    assert diffs["to the port"] <= FP32_ATOL

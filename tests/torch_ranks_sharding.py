@@ -13,7 +13,11 @@ of a 2x2 ``(data, model)`` mesh (one spawn; ``torch_ranks``):
 - ``families``: the MoE, SSD, hybrid, VLM and encoder-decoder smoke
   models in float32, weights and inputs from ``inputs.npz``: the loss, a
   prefill and two decode steps, unsharded and sharded, with the experts
-  each MoE call chose (``top_e``) in both runs.
+  each MoE call chose (``top_e``) in both runs;
+- ``ce``: the vocab-parallel cross entropy of granite-8b's smoke model
+  (untied unembedding) and gemma2-9b's (tied, scaled embeddings and a
+  logit softcap) in float32, unsharded and sharded: the loss, its
+  gradient with respect to the logits and to the unembedding table.
 
     python tests/torch_ranks_sharding.py <workdir>
 """
@@ -207,11 +211,65 @@ def families_case(mesh, inputs) -> dict:
     return out
 
 
+#: the ``ce`` case's models, by their prefix in ``inputs.npz``, and the
+#: leaf each unembeds with
+CE_ARCHS = {"granite": ("granite-8b", "unembed"),
+            "gemma": ("gemma2-9b", "embed")}
+
+
+def ce_run(cfg, params, tokens, labels, table) -> dict:
+    """The loss of ``tokens``, its gradient with respect to the logits
+    (a leaf made of them) and to ``params[table]``, whole tensors as
+    lists, and whether the logits were split over the vocabulary."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.sharding import full, is_dtensor
+    logits, _ = T.forward(params, cfg, tokens)
+    leaf = logits.detach().requires_grad_()
+    torch.mean(T.token_losses(leaf, labels)).backward()
+    params[table].requires_grad_()
+    _, (loss, _) = T.loss_fn(params, cfg, tokens, labels)
+    loss.backward()
+    split = is_dtensor(logits) and any(
+        p.is_shard(logits.ndim - 1) for p in logits.placements)
+    return {"loss": float(full(loss)), "vocab_split": split,
+            "logits_grad": full(leaf.grad).tolist(),
+            "table_grad": full(params[table].grad).tolist()}
+
+
+def ce_case(mesh, inputs) -> dict:
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.runtime import sharding as SH, specs as SP
+    T.COMPUTE_DTYPE = torch.float32
+    out = {}
+    for key, (arch, table) in CE_ARCHS.items():
+        cfg = C.get_smoke(arch)
+        tokens = torch.from_numpy(inputs[f"{key}_tokens"]).long()
+        labels = torch.roll(tokens, -1, 1)
+
+        def weights():
+            return T.params_from_jax(torch_ranks.unflatten(inputs, f"{key}/"),
+                                     device="cpu", dtype=torch.float32)
+
+        plain = ce_run(cfg, weights(), tokens, labels, table)
+        B, S = tokens.shape
+        rules = SP.cell_rules(cfg, ShapeConfig("t", S, B, "train"), mesh)
+        placed = SP.place(rules, weights(), T.param_axes(cfg))
+        with SH.use_rules(rules):
+            sharded = ce_run(cfg, placed, tokens, labels, table)
+        out[key] = {"plain": plain, "sharded": sharded}
+    return out
+
+
 def cases(rank, mesh, inputs, workdir) -> dict:
     return {"loss": loss_case(mesh, inputs),
             "train": train_case(mesh, inputs),
             "gqa": gqa_case(mesh, inputs),
-            "families": families_case(mesh, inputs)}
+            "families": families_case(mesh, inputs),
+            "ce": ce_case(mesh, inputs)}
 
 
 if __name__ == "__main__":
