@@ -12,9 +12,18 @@ Phases, in order; any failed check exits nonzero and prints no result:
 3. kernels  each kernel against its plain PyTorch version on the same
             inputs, with its time, the plain version's time and its
             bound: ``fid_slots`` bit-exact (integer outputs: tolerance
-            0); each of the two attention kernels (``flash_fwd_sm90_kernel``,
-            wgmma and TMA, bf16 with D % 16 == 0; ``flash_fwd_kernel``,
-            CUDA cores, every case) at every case of the reference's
+            0) at N = 0, 1024 and 2^16 (with the edge FIDs) and 2^20 for
+            every n_slots of ``SLOTS_SWEEP``, called alone and into a
+            given ``out``, timed at 1024, 2^16 (one routing chunk) and
+            2^20, its SASS instructions counted (``cuobjdump``), and one
+            routing round of 64 journal reads of 1024 records hashed
+            through one ``SlotRouter.slots_many`` against 64
+            ``SlotRouter.slots`` calls, in turns (host ns a row), and
+            beside it PyTorch copies of one word of each row and of
+            whole rows; each of the two attention kernels
+            (``flash_fwd_sm90_kernel``, wgmma and TMA, bf16 with
+            D % 16 == 0; ``flash_fwd_kernel``, CUDA cores, every case)
+            at every case of the reference's
             tests/test_kernels.py it takes, at the serving path's shape
             and at extra bf16 cases (a 2049-token prefill, gemma2's
             head_dim with window and softcap, rows with nothing visible,
@@ -39,8 +48,10 @@ Phases, in order; any failed check exits nonzero and prints no result:
             4 shards, two consumer groups and an ephemeral reader
             draining it; exactly-once per group, every record on its
             slot's owner, all journals trimmed, one kernel launch per
-            routing read; and a small run that must deliver exactly
-            what the same cluster delivers routing on the CPU;
+            routing chunk (a round's reads hashed together, up to
+            ``CHUNK_ROWS`` rows a launch: fewer launches than reads);
+            and a small run that must deliver exactly what the same
+            cluster delivers routing on the CPU;
 5. serve    granite-8b at full width (36 layers, 8.25 B parameters in
             bf16, seeded random weights on the card) through the port's
             serving launcher: 4 prompts of 2048 tokens prefilled through
@@ -58,7 +69,7 @@ Phases, in order; any failed check exits nonzero and prints no result:
             routing on the card (its distributor thread), the main path's
             consumers in this process on the four shard ports over
             127.0.0.1 TCP with v2 frames, with phase 4's checks, one
-            kernel launch per routing read, and a small run that must
+            kernel launch per routing chunk, and a small run that must
             deliver per group what the in-process run delivers; (b) four
             spawned ``run_shard_daemon`` processes, each draining a
             co-located robinhood group, fed deep-batched v2 offers by a
@@ -78,7 +89,7 @@ Phases, in order; any failed check exits nonzero and prints no result:
             against a plain reckoning from the generator's arrays; the
             action stream reconciled; the merged registry's counters,
             one Prometheus scrape over 127.0.0.1, a Ganglia push and the
-            ``top`` frame; one kernel launch per routing read; and a
+            ``top`` frame; one kernel launch per routing chunk; and a
             small run whose consumers must end in the same state routing
             on the card and on the CPU;
 8. train    starcoder2-3b at full width and depth (30 layers, 4.31 B
@@ -233,7 +244,16 @@ RECORDS_PER_MDT = 262_144
 N_SHARDS = 4
 N_SLOTS = 64
 BATCH = 1024
-SLOTS_SWEEP = (1, 64, 65535, 65536, 1000003)
+#: divisors the routing kernel is held at: 3 makes its reciprocal
+#: modulus correct the quotient most often, 2^31 - 1 is the largest
+SLOTS_SWEEP = (1, 3, 64, 65535, 65536, 1000003, (1 << 31) - 1)
+#: sizes the routing kernel is timed at: a journal read, one routing
+#: chunk (``cluster.CHUNK_ROWS``), and 2^20 rows
+SLOT_SIZES = (1024, 1 << 16, 1 << 20)
+#: phase 3's routing round: journal reads of BATCH records hashed two ways
+ROUND_READS = 64
+#: the int64 word of a header row that holds tseq (bytes 32..39)
+TFID_WORD = 4
 #: phase 6: records per MDT journal over the wire, and its time limits
 WIRE_RECORDS_PER_MDT = 65_536
 WIRE_DEADLINE_S = 300.0
@@ -515,40 +535,124 @@ def fid_slots_bound_ms(n: int) -> tuple:
                                                           "operations")
 
 
-def kernel_phase(seed: int) -> dict:
+def sass_counts(lib) -> dict:
+    """SASS instructions of each function in a built library, by
+    ``cuobjdump -sass`` (NOPs left out): {function: {"instructions",
+    "loads" (LDG), "calls" (CALL)}}."""
+    import re
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            counts[name] = {"instructions": 0, "loads": 0, "calls": 0}
+            continue
+        ins = re.match(
+            r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)", line)
+        if name is None or not ins or ins.group(1).startswith("NOP"):
+            continue
+        op = ins.group(1)
+        counts[name]["instructions"] += 1
+        counts[name]["loads"] += op.startswith("LDG")
+        counts[name]["calls"] += op.startswith("CALL")
+    return counts
+
+
+def round_trip(seed: int) -> dict:
+    """One routing round on the card, hashed two ways on the same
+    ``SlotRouter``: ROUND_READS journal reads of BATCH records through
+    one ``slots_many`` (one chunk, one launch), and through ROUND_READS
+    ``slots`` calls (one launch each, the migration path).  Both must
+    equal the plain version; host seconds of each way, 21 times in
+    turns, as ns a row (medians)."""
+    from repro_torch.core.cluster import SlotRouter
+    from repro_torch.core.llog import from_packed
     from repro_torch.kernels import stream_ops
+    buf, off, ln, _types = make_journal_arrays(0, ROUND_READS * BATCH, seed)
+    log = from_packed("mdt0", buf, off, ln, first_index=1)
+    batches = [log.read(1 + k * BATCH, BATCH) for k in range(ROUND_READS)]
+    want = [stream_ops.fid_slots_rows_reference(
+        torch.from_numpy(b.header_rows().copy()), N_SLOTS).numpy()
+        for b in batches]
+    router = SlotRouter("cuda")
+    ways = {"slots_many": lambda: router.slots_many(batches, N_SLOTS),
+            "slots": lambda: [router.slots(b, N_SLOTS) for b in batches]}
+    for way, fn in ways.items():
+        chunks, launches = router.chunks, stream_ops.launches
+        got = fn()
+        check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+              f"routing round through {way} differs from the plain version")
+        expect = 1 if way == "slots_many" else ROUND_READS
+        check(router.chunks - chunks == stream_ops.launches - launches
+              == expect, f"routing round through {way}: "
+              f"{stream_ops.launches - launches} launches, not {expect}")
+    seconds = {way: [] for way in ways}
+    for rep in range(21):
+        order = list(ways) if rep % 2 == 0 else list(ways)[::-1]
+        for way in order:
+            t = time.perf_counter()
+            ways[way]()
+            seconds[way].append(time.perf_counter() - t)
+    rows = ROUND_READS * BATCH
+    return {f"{way}_ns_per_row": statistics.median(v) / rows * 1e9
+            for way, v in seconds.items()}
+
+
+def kernel_phase(seed: int) -> dict:
+    from repro_torch.kernels import _build, stream_ops
     dev = torch.device("cuda")
     worst = 0
     big = fid_rows(1 << 20, seed)
-    cases = [(big, "2^20 + edge FIDs"), (big[:1024], "N = 1024"),
+    # the last rows of the table hold the four edge FIDs
+    cases = [(big, "2^20 + edge FIDs"),
+             (big[-BATCH:], f"N = {BATCH} with the edge FIDs"),
+             (big[-(1 << 16):], "N = 2^16 with the edge FIDs"),
              (big[:0], "N = 0")]
     for rows, label in cases:
         on_card = rows.to(dev)
         for n_slots in SLOTS_SWEEP:
             before = stream_ops.launches
             got = stream_ops.fid_slots_rows(on_card, n_slots)
+            into = torch.full((len(rows),), -1, dtype=torch.int64,
+                              device=dev)
+            check(stream_ops.fid_slots_rows(on_card, n_slots, out=into)
+                  is into, f"fid_slots did not return its out at {label}")
             torch.cuda.synchronize()
             want = stream_ops.fid_slots_rows_reference(rows, n_slots)
-            check(stream_ops.launches == before + (1 if len(rows) else 0),
+            check(stream_ops.launches
+                  == before + (2 if len(rows) else 0),
                   f"fid_slots launch count wrong at {label}")
             check(got.dtype == torch.int64 and got.shape == want.shape,
                   f"fid_slots shape/dtype wrong at {label}")
-            diff = (got.cpu() - want).abs()
-            err = int(diff.max()) if diff.numel() else 0
-            worst = max(worst, err)
-            check(err == 0, f"fid_slots differs from its plain version at "
-                  f"{label}, n_slots={n_slots}: max |err| {err}")
+            for what in (got, into):
+                diff = (what.cpu() - want).abs()
+                err = int(diff.max()) if diff.numel() else 0
+                worst = max(worst, err)
+                check(err == 0, f"fid_slots differs from its plain version "
+                      f"at {label}, n_slots={n_slots}: max |err| {err}")
         log(f"kernels: fid_slots bit-exact vs plain version ({label}, "
-            f"n_slots in {SLOTS_SWEEP})")
+            f"n_slots in {SLOTS_SWEEP}, alone and into out)")
+    lib = _build.library_path(stream_ops.SOURCE)
+    sass = sass_counts(lib)
+    log(f"kernels: fid_slots SASS instructions by cuobjdump of {lib.name} "
+        f"(NOPs left out): {json.dumps(sass)}")
     # the floor under any launch: one tiny PyTorch kernel
     one = torch.zeros(1, device=dev)
     launch_ms = cuda_median_ms(lambda: one.add_(1))
     log(f"kernels: one-element PyTorch kernel {launch_ms:.6f} ms "
         "(launch floor)")
     sizes = {}
-    for n in (1024, 1 << 20):
+    for n in SLOT_SIZES:
         rows = big[:n].to(dev)
+        into = torch.empty(n, dtype=torch.int64, device=dev)
         ms = cuda_median_ms(lambda: stream_ops.fid_slots_rows(rows, N_SLOTS))
+        out_ms = cuda_median_ms(
+            lambda: stream_ops.fid_slots_rows(rows, N_SLOTS, out=into))
         plain_ms = cuda_median_ms(
             lambda: stream_ops.fid_slots_rows_reference(rows, N_SLOTS),
             runs=20)
@@ -560,20 +664,49 @@ def kernel_phase(seed: int) -> dict:
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(20):
-                stream_ops.fid_slots_rows(rows, N_SLOTS)
+                stream_ops.fid_slots_rows(rows, N_SLOTS, out=into)
             torch.cuda.synchronize()
         device_ms = device_busy_ms(prof) / 20
-        sizes[n] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "bound_with_launch_ms": floor_ms,
-                    "bound_with_launch_by": floor_by, "device_ms": device_ms}
+        # what the rows' layout lets the card do: the kernel launched back
+        # to back, against PyTorch copies of one 8-byte word of each
+        # 64-byte row (less than the kernel must read) and of whole rows
+        words = rows.view(torch.int64)[:, TFID_WORD]
+        word_out = torch.empty(n, dtype=torch.int64, device=dev)
+        whole = torch.empty_like(rows)
+        access = {
+            "kernel_ms": back_to_back_ms(
+                lambda: stream_ops.fid_slots_rows(rows, N_SLOTS, out=into),
+                200),
+            "copy_word_of_row_ms": back_to_back_ms(
+                lambda: word_out.copy_(words), 200),
+            "copy_whole_row_ms": back_to_back_ms(
+                lambda: whole.copy_(rows), 200)}
+        sizes[n] = {"ms": ms, "out_ms": out_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_with_launch_ms": floor_ms,
+                    "bound_with_launch_by": floor_by, "device_ms": device_ms,
+                    "back_to_back": access}
         log(f"kernels: fid_slots N={n} n_slots={N_SLOTS}: kernel {ms:.6f} ms "
-            f"(median of 50, CUDA events around each launch; "
-            f"{device_ms:.6f} ms device time by torch.profiler), plain "
-            f"version {plain_ms:.6f} ms; bound {floor_ms:.6f} ms "
-            f"({floor_by}): bytes and INT32 work alone "
-            f"{bound_ms:.6f} ms ({bound_by}, {n * FID_SLOT_BYTES} B), "
-            f"launch floor {launch_ms:.6f} ms")
-    return {"max_abs_err": worst, "sizes": sizes, "launch_ms": launch_ms}
+            f"(median of 50, CUDA events around each wrapper call; "
+            f"{out_ms:.6f} ms into a given out; {device_ms:.6f} ms device "
+            f"time by torch.profiler), plain version {plain_ms:.6f} ms; "
+            f"bound {floor_ms:.6f} ms ({floor_by}): bytes and INT32 work "
+            f"alone {bound_ms:.6f} ms ({bound_by}, {n * FID_SLOT_BYTES} B), "
+            f"launch floor {launch_ms:.6f} ms; device time at "
+            f"{100 * bound_ms / device_ms:.1f} % of the bound")
+        log(f"kernels: fid_slots N={n}, 200 launches back to back: kernel "
+            f"{access['kernel_ms']:.6f} ms, a PyTorch copy of one 8-byte "
+            f"word of each row {access['copy_word_of_row_ms']:.6f} ms, of "
+            f"whole rows {access['copy_whole_row_ms']:.6f} ms (mean of 200 "
+            "between CUDA events)")
+    trip = round_trip(seed)
+    log(f"kernels: a routing round of {ROUND_READS} reads x {BATCH} rows on "
+        f"the card: one slots_many (1 launch) "
+        f"{trip['slots_many_ns_per_row']:.3f} ns a row, {ROUND_READS} slots "
+        f"calls ({ROUND_READS} launches) {trip['slots_ns_per_row']:.3f} ns "
+        f"a row (host clock, medians of 21 in turns)")
+    return {"max_abs_err": worst, "sizes": sizes, "launch_ms": launch_ms,
+            "sass": sass, "round_trip": trip}
 
 
 # --------------------------------------------------------------- phase 4
@@ -691,18 +824,20 @@ def subscribe_main_path(session) -> list:
 
 def timed_routing(cluster) -> list:
     """Make ``cluster`` add the host seconds of its routing calls (header
-    rows to the card, kernel, slots back) to the returned one-element
-    list."""
+    rows to the card, kernel, slots back), of one read or of a round's
+    reads, to the returned one-element list."""
     routing = [0.0]
-    route = cluster.batch_slots
 
-    def timed_route(batch):
-        t = time.perf_counter()
-        out = route(batch)
-        routing[0] += time.perf_counter() - t
-        return out
+    def timed(route):
+        def call(batches):
+            t = time.perf_counter()
+            out = route(batches)
+            routing[0] += time.perf_counter() - t
+            return out
+        return call
 
-    cluster.batch_slots = timed_route
+    cluster.batch_slots = timed(cluster.batch_slots)
+    cluster.batch_slots_many = timed(cluster.batch_slots_many)
     return routing
 
 
@@ -801,16 +936,14 @@ def main_path_phase(seed: int) -> dict:
         cluster, logs, deliveries, seconds, routing_s = run_pipeline(
             journals, "cuda")
     launches = stream_ops.launches
-    reads = cluster.routing_reads
+    reads, chunks = cluster.routing_reads, cluster.routing_launches
     facts = verify_pipeline(cluster, logs, deliveries, journals, N_SLOTS)
-    check(launches > 0, "the main path launched no fid_slots kernel")
-    check(launches == reads, f"fid_slots launches {launches} != non-empty "
-          f"routing reads {reads}")
+    check_routing_launches("main", launches, chunks, reads)
     rate = total / seconds
     log(f"main: {total} records, 4 shards, robinhood x2 + audit x2 + "
         f"ephemeral reader: {seconds:.3f} s end to end, {rate:.1f} records/s")
-    log(f"main: routing reads {reads}, fid_slots launches {launches}, "
-        f"ephemeral reader got {facts['reader']} "
+    log(f"main: routing reads {reads}, routing chunks {chunks}, fid_slots "
+        f"launches {launches}, ephemeral reader got {facts['reader']} "
         f"(dropped {facts['reader_drops']} on full outboxes)")
     busy_ms = device_busy_ms(prof)
     log(f"main: routing calls took {routing_s:.3f} s of the host's "
@@ -834,7 +967,18 @@ def main_path_phase(seed: int) -> dict:
         f"routing on the card and on the CPU ({len(traces[0])} batches)")
     return {"launches": launches, "reads": reads, "seconds": seconds,
             "records_per_s": rate, "routing_s": routing_s,
-            "device_busy_ms": busy_ms}
+            "routing_share": routing_s / seconds, "device_busy_ms": busy_ms}
+
+
+def check_routing_launches(label: str, launches: int, chunks: int,
+                           reads: int) -> None:
+    """A cluster run on the card: one kernel launch per routing chunk,
+    and fewer chunks than reads (a round's reads hashed together)."""
+    check(launches > 0, f"{label}: no fid_slots kernel launched")
+    check(launches == chunks, f"{label}: fid_slots launches {launches} != "
+          f"routing chunks {chunks}")
+    check(chunks < reads, f"{label}: {chunks} routing chunks for {reads} "
+          "routing reads")
 
 
 # ------------------------------------------------------------ phase 6: wire
@@ -1114,9 +1258,8 @@ def wire_phase(seed: int, smi: str) -> dict:
     launches, reads = stream_ops.launches, cluster.routing_reads
     wire = meter.take()
     facts = verify_pipeline(cluster, logs, deliveries, journals, N_SLOTS)
-    check(launches > 0, "the wire service launched no fid_slots kernel")
-    check(launches == reads, f"wire service: fid_slots launches {launches} "
-          f"!= non-empty routing reads {reads}")
+    check_routing_launches("wire service", launches,
+                           cluster.routing_launches, reads)
     busy_ms = device_busy_ms(prof)
     out["service"] = {"seconds": seconds, "records_per_s": total / seconds,
                       "routing_s": routing_s, "launches": launches,
@@ -1148,9 +1291,8 @@ def wire_phase(seed: int, smi: str) -> dict:
     launches, reads = stream_ops.launches, run["cluster"].routing_reads
     wire = meter.take()
     verify_daemons(run, journals, N_SLOTS)
-    check(launches > 0, "the daemon coordinator launched no fid_slots kernel")
-    check(launches == reads, f"daemons: fid_slots launches {launches} != "
-          f"non-empty routing reads {reads}")
+    check_routing_launches("daemons", launches,
+                           run["cluster"].routing_launches, reads)
     busy_ms = device_busy_ms(prof)
     seconds = run["seconds"]
     out["daemons"] = {"seconds": seconds, "records_per_s": total / seconds,
@@ -1670,9 +1812,8 @@ def activity_phase(seed: int, smi: str) -> dict:
                                time_reap=True)
         launches, reads = stream_ops.launches, run["cluster"].routing_reads
         facts = verify_activity(run, journals)
-        check(launches > 0, "the activity run launched no fid_slots kernel")
-        check(launches == reads, f"activity: fid_slots launches {launches} "
-              f"!= non-empty routing reads {reads}")
+        check_routing_launches("activity", launches,
+                               run["cluster"].routing_launches, reads)
         session = connect(run["cluster"])
         frame = ActivityTop(run["agg"], session=session,
                             cluster=run["cluster"], k=5).render()
@@ -3772,7 +3913,13 @@ def main() -> int:
         "launch_floor_ms": k["launch_ms"],
         "bound_with_launch_ms": at["bound_with_launch_ms"],
         "bound_with_launch_by": at["bound_with_launch_by"],
+        "out_ms": at["out_ms"], "device_ms": at["device_ms"],
+        "at_2p16": k["sizes"][1 << 16],
         "at_2p20": k["sizes"][1 << 20],
+        # SASS instructions of the built kernel, and one routing round of
+        # ROUND_READS reads hashed in one launch against one launch a read
+        "sass": k["sass"],
+        "round_trip": k["round_trip"],
     }] + [{
         "name": name,
         "route": "cuda",
@@ -3828,7 +3975,9 @@ def main() -> int:
                             "seconds": main["seconds"],
                             "records_per_s": main["records_per_s"],
                             "routing_reads": main["reads"],
+                            "routing_launches": main["launches"],
                             "routing_s": main["routing_s"],
+                            "routing_share": main["routing_share"],
                             "device_busy_ms": main["device_busy_ms"]}
     print(json.dumps({"serve": sv}), flush=True)
     print(json.dumps({"wire": wire}), flush=True)

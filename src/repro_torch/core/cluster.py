@@ -55,11 +55,12 @@ of shard addresses) fans a ``Subscription`` in from every shard — one
 logical stream, per-(shard, producer) cursors, commits routed back to
 the owning shard (session.py, ``FanInStream``).
 
-Routing runs on the card: ``SlotRouter`` copies each journal read's
-64-byte header rows to the GPU through a pinned staging buffer and
-hashes them there with the hand-written CUDA kernel in
-``kernels/stream_ops.py``.  ``LcapCluster(device="cpu")`` routes with
-that kernel's plain PyTorch version instead (the tests' path).
+Routing runs on the card: ``SlotRouter`` copies a routing round's
+64-byte header rows to the GPU through a pinned staging buffer, in
+chunks of up to ``CHUNK_ROWS`` rows, and hashes each chunk there with
+one launch of the hand-written CUDA kernel in ``kernels/stream_ops.py``.
+``LcapCluster(device="cpu")`` routes with that kernel's plain PyTorch
+version instead (the tests' path).
 """
 
 from __future__ import annotations
@@ -129,47 +130,101 @@ def _resolve_device(device=None) -> torch.device:
     return dev
 
 
+#: header rows hashed by one launch: a routing round's reads go to the
+#: device back to back in chunks of at most this many rows (4 MiB of
+#: pinned rows and 512 KiB of slots), so the staging buffers stay bounded
+#: whatever the backlog
+CHUNK_ROWS = 1 << 16
+
+
 class SlotRouter:
     """Hashes batches' target FIDs to slots on one device.
 
-    On the card, each batch's header rows are copied into a pinned
-    staging buffer (reused across calls, grown on demand), moved to the
-    GPU as one ``uint8 [N, 64]`` tensor, hashed by the CUDA kernel, and
-    the int64 slots come back through a second pinned buffer.  On the
-    CPU the kernel's plain PyTorch version hashes a copy of the rows.
-    The lock covers replay reads racing the routing loop."""
+    ``slots_many`` copies the header rows of consecutive batches back to
+    back into a staging buffer (pinned on the card, grown on demand up
+    to ``CHUNK_ROWS`` rows and reused across calls); each chunk takes
+    one copy to the GPU, one launch of the CUDA kernel into a reused
+    device buffer, one copy of the int64 slots back and one
+    synchronize.  On the CPU the kernel's plain PyTorch version hashes
+    each chunk of the same staging.  ``chunks`` counts the chunks
+    hashed: one launch each on the card.  The lock covers replay reads
+    racing the routing loop."""
 
     def __init__(self, device):
         self.device = torch.device(device)
-        self._rows: Optional[torch.Tensor] = None    # pinned uint8 [cap, 64]
-        self._slots: Optional[torch.Tensor] = None   # pinned int64 [cap]
+        self._rows: Optional[torch.Tensor] = None      # uint8 [cap, 64]
+        self._slots: Optional[torch.Tensor] = None     # int64 [cap]
+        self._dev_rows: Optional[torch.Tensor] = None  # on the card
+        self._dev_slots: Optional[torch.Tensor] = None
+        self.chunks = 0
         self._lock = threading.Lock()
 
     def slots(self, batch: "R.RecordBatch", n_slots: int) -> np.ndarray:
-        # a view that may be read-only (sealed segment, received frame):
-        # copied, never handed to torch as it is
-        rows = batch.header_rows()
-        n = rows.shape[0]
-        if n == 0:
-            return np.empty(0, dtype=np.int64)
+        """Slots of one batch (one chunk while it holds at most
+        ``CHUNK_ROWS`` rows)."""
+        return self.slots_many([batch], n_slots)[0]
+
+    def slots_many(self, batches: Sequence["R.RecordBatch"],
+                   n_slots: int) -> List[np.ndarray]:
+        """Slots of every batch, each a slice of one host array, hashed
+        in chunks of at most ``CHUNK_ROWS`` rows that may split a
+        batch."""
+        # views that may be read-only (sealed segment, received frame):
+        # copied into the staging buffer, never handed to torch as they are
+        rows = [batch.header_rows() for batch in batches]
+        out = np.empty(sum(r.shape[0] for r in rows), dtype=np.int64)
+        if out.size:
+            with self._lock:
+                cap = CHUNK_ROWS
+                self._stage(min(out.size, cap))
+                staged = self._rows.numpy()
+                filled = done = 0
+                for r in rows:
+                    pos = 0
+                    while pos < r.shape[0]:
+                        take = min(r.shape[0] - pos, cap - filled)
+                        staged[filled:filled + take] = r[pos:pos + take]
+                        filled += take
+                        pos += take
+                        if filled == cap:
+                            self._hash(filled, n_slots,
+                                       out[done:done + filled])
+                            done += filled
+                            filled = 0
+                if filled:
+                    self._hash(filled, n_slots, out[done:done + filled])
+        split = np.cumsum([r.shape[0] for r in rows])[:-1]
+        return np.split(out, split) if rows else []
+
+    def _stage(self, n: int) -> None:
+        """Staging (and, on the card, device) buffers of at least ``n``
+        rows."""
+        if self._rows is not None and self._rows.shape[0] >= n:
+            return
+        pin = self.device.type == "cuda"
+        self._rows = torch.empty((n, R.HDR_SIZE), dtype=torch.uint8,
+                                 pin_memory=pin)
+        self._slots = torch.empty(n, dtype=torch.int64, pin_memory=pin)
+        if pin:
+            self._dev_rows = torch.empty((n, R.HDR_SIZE), dtype=torch.uint8,
+                                         device=self.device)
+            self._dev_slots = torch.empty(n, dtype=torch.int64,
+                                          device=self.device)
+
+    def _hash(self, n: int, n_slots: int, dst: np.ndarray) -> None:
+        """Hash the first ``n`` staged rows into ``dst``."""
+        host = self._slots[:n]
         if self.device.type == "cpu":
-            return stream_ops.fid_slots_rows(torch.from_numpy(rows.copy()),
-                                             n_slots).numpy()
-        with self._lock:
-            if self._rows is None or self._rows.shape[0] < n:
-                cap = max(n, 1024)
-                self._rows = torch.empty((cap, R.HDR_SIZE),
-                                         dtype=torch.uint8, pin_memory=True)
-                self._slots = torch.empty(cap, dtype=torch.int64,
-                                          pin_memory=True)
-            host = self._rows[:n]
-            host.numpy()[...] = rows
-            dev = host.to(self.device, non_blocking=True)
-            out = self._slots[:n]
-            out.copy_(stream_ops.fid_slots_rows(dev, n_slots),
-                      non_blocking=True)
+            stream_ops.fid_slots_rows(self._rows[:n], n_slots, out=host)
+        else:
+            rows = self._dev_rows[:n]
+            rows.copy_(self._rows[:n], non_blocking=True)
+            slots = self._dev_slots[:n]
+            stream_ops.fid_slots_rows(rows, n_slots, out=slots)
+            host.copy_(slots, non_blocking=True)
             torch.cuda.current_stream(self.device).synchronize()
-            return out.numpy().copy()
+        dst[...] = host.numpy()
+        self.chunks += 1
 
 
 _routers: Dict[torch.device, SlotRouter] = {}
@@ -439,8 +494,7 @@ class LcapCluster:
             raise ClusterError(f"n_slots must be in [1, 2^31), got {n_slots}")
         self.device = _resolve_device(device)
         self._router = SlotRouter(self.device)
-        #: non-empty batches hashed to slots (one kernel launch each on
-        #: the card)
+        #: non-empty batches hashed to slots
         self.routing_reads = 0
         self._modules = list(modules or [])
         self._proxy_defaults = dict(proxy_kwargs)
@@ -530,13 +584,26 @@ class LcapCluster:
                 self._migration.handoff.setdefault(pid, start - 1)
 
     # -------------------------------------------------------------- routing
+    @property
+    def routing_launches(self) -> int:
+        """Chunks the cluster's router hashed: one kernel launch each on
+        the card."""
+        return self._router.chunks
+
     def batch_slots(self, batch: R.RecordBatch) -> np.ndarray:
         """Slots of ``batch``'s target FIDs, hashed on the cluster's
         device — every routing decision of the cluster goes through
-        here."""
+        here or through ``batch_slots_many``."""
         if len(batch):
             self.routing_reads += 1
         return self._router.slots(batch, self.n_slots)
+
+    def batch_slots_many(self, batches: Sequence[R.RecordBatch],
+                         ) -> List[np.ndarray]:
+        """``batch_slots`` of every batch, hashed together in chunks of
+        up to ``CHUNK_ROWS`` rows (a routing round's reads)."""
+        self.routing_reads += sum(1 for batch in batches if len(batch))
+        return self._router.slots_many(batches, self.n_slots)
 
     def _partition(self, batch: R.RecordBatch) -> List[np.ndarray]:
         """Row indices per shard, in batch (= journal) order."""
@@ -547,48 +614,75 @@ class LcapCluster:
         """One routing round: read every journal forward, partition by
         FID slot, push one deep-batched offer burst per shard —
         including empty ones, which carry the watermark advance.
-        Rows whose slot is draining (mid-migration) are parked instead
-        of offered; when the parking buffer is full the round stops
-        reading (backpressure) until the migration settles.
+        Without a migration in flight the round's reads are hashed
+        together (``batch_slots_many``: one launch per chunk).  Rows
+        whose slot is draining (mid-migration) are parked instead of
+        offered; when the parking buffer is full the round stops reading
+        (backpressure) until the migration settles, so then each read is
+        hashed as it is read.
         Returns ``(records routed, remote shards whose offer replies
         already piggybacked their watermarks this round)``."""
         n = 0
         offers: List[List[Tuple[str, R.RecordBatch, int]]] = \
             [[] for _ in self.shards]
         owner_arr = self.routing.owner_array()
-        drain = (self.routing.draining_mask()
-                 if self._migration is not None else None)
-        for pid, log in self.journals.items():
-            while True:
-                if drain is not None and self._parked_count >= self.park_cap:
-                    break
-                batch = log.read(self.cursors[pid], self.batch_size)
-                if not batch:
-                    break
-                got = len(batch)
-                hi = batch.packed_index(got - 1)
-                self.cursors[pid] = hi + 1
-                slots = self.batch_slots(batch)
-                if drain is not None and bool(drain[slots].any()):
-                    dmask = drain[slots]
-                    parked_rows = np.flatnonzero(dmask)
-                    self._parked.append((pid, batch.select(parked_rows), hi))
-                    self._parked_count += int(parked_rows.size)
-                    self.stats["parked_records"] += int(parked_rows.size)
-                    keep = np.flatnonzero(~dmask)
-                    owner = owner_arr[slots[keep]]
-                    rows = [keep[owner == i]
-                            for i in range(len(self.shards))]
-                else:
-                    owner = owner_arr[slots]
-                    rows = [np.flatnonzero(owner == i)
-                            for i in range(len(self.shards))]
-                for i, shard_rows in enumerate(rows):
+        if self._migration is None:
+            reads = []
+            cursors = dict(self.cursors)
+            for pid, log in self.journals.items():
+                while True:
+                    batch = log.read(cursors[pid], self.batch_size)
+                    if not batch:
+                        break
+                    got = len(batch)
+                    hi = batch.packed_index(got - 1)
+                    cursors[pid] = hi + 1
+                    reads.append((pid, batch, hi))
+                    if got < self.batch_size:
+                        break
+            hashed = self.batch_slots_many([batch for _, batch, _ in reads])
+            self.cursors.update(cursors)
+            for (pid, batch, hi), slots in zip(reads, hashed):
+                owner = owner_arr[slots]
+                for i in range(len(self.shards)):
                     if self.alive[i]:
-                        offers[i].append((pid, batch.select(shard_rows), hi))
-                n += got
-                if got < self.batch_size:
-                    break
+                        offers[i].append(
+                            (pid, batch.select(np.flatnonzero(owner == i)),
+                             hi))
+                n += len(batch)
+        else:
+            drain = self.routing.draining_mask()
+            for pid, log in self.journals.items():
+                while self._parked_count < self.park_cap:
+                    batch = log.read(self.cursors[pid], self.batch_size)
+                    if not batch:
+                        break
+                    got = len(batch)
+                    hi = batch.packed_index(got - 1)
+                    self.cursors[pid] = hi + 1
+                    slots = self.batch_slots(batch)
+                    if bool(drain[slots].any()):
+                        dmask = drain[slots]
+                        parked_rows = np.flatnonzero(dmask)
+                        self._parked.append((pid, batch.select(parked_rows),
+                                             hi))
+                        self._parked_count += int(parked_rows.size)
+                        self.stats["parked_records"] += int(parked_rows.size)
+                        keep = np.flatnonzero(~dmask)
+                        owner = owner_arr[slots[keep]]
+                        rows = [keep[owner == i]
+                                for i in range(len(self.shards))]
+                    else:
+                        owner = owner_arr[slots]
+                        rows = [np.flatnonzero(owner == i)
+                                for i in range(len(self.shards))]
+                    for i, shard_rows in enumerate(rows):
+                        if self.alive[i]:
+                            offers[i].append((pid, batch.select(shard_rows),
+                                              hi))
+                    n += got
+                    if got < self.batch_size:
+                        break
         # two-phase: fire every shard's burst first, then drain the
         # replies — the shards ingest their shares concurrently instead
         # of the coordinator serializing on one shard at a time
@@ -828,8 +922,8 @@ class LcapCluster:
         owner_arr = self.routing.owner_array()
         offers: List[List[Tuple[str, R.RecordBatch, int]]] = \
             [[] for _ in self.shards]
-        for pid, batch, hi in parked:
-            slots = self.batch_slots(batch)
+        hashed = self.batch_slots_many([batch for _, batch, _ in parked])
+        for (pid, batch, hi), slots in zip(parked, hashed):
             idx = batch.indices_np().astype(np.int64)
             cut = drop_above.get(pid, -1)
             keep = np.flatnonzero(~(moved_mask[slots] & (idx > cut)))

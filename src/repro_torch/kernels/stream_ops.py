@@ -6,8 +6,10 @@ Pallas kernel on uint32 limbs (``repro/kernels/stream_ops.py``); here it
 is a CUDA kernel written by hand for Hopper (``csrc/fid_slots.cu``) that
 reads the FID straight out of the records' 64-byte header rows.
 
-- ``fid_slots_rows(rows, n_slots)`` is the wrapper: ``rows`` is a
-  ``uint8 [N, 64]`` header table (``records.HDR_DTYPE`` rows).  On a CUDA
+- ``fid_slots_rows(rows, n_slots, out=None)`` is the wrapper: ``rows``
+  is a ``uint8 [N, 64]`` header table (``records.HDR_DTYPE`` rows),
+  ``out`` an optional int64 ``[N]`` tensor on the same device that
+  receives the slots (the cluster's router reuses its own).  On a CUDA
   tensor it launches the kernel, and raises on anything the kernel does
   not take; on a CPU tensor it runs ``fid_slots_rows_reference``.
 - ``fid_slots_rows_reference`` is the plain PyTorch version of the same
@@ -19,12 +21,14 @@ reads the FID straight out of the records' 64-byte header rows.
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` into ``build/`` next
 to this file on first use and loaded through ``ctypes`` (``_build``);
-nothing is compiled or loaded at import time.
+nothing is compiled or loaded at import time.  After the first launch
+the wrapper keeps the bound C function, so a launch takes no lock.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -109,30 +113,54 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def load() -> ctypes.CDLL:
     """The kernel's library, built by nvcc and loaded on first call."""
-    return _build.load(SOURCE, _bind)
+    global _launch
+    lib = _build.load(SOURCE, _bind)
+    _launch = lib.lcap_fid_slots
+    return lib
 
 
-def fid_slots_rows(rows: torch.Tensor, n_slots: int) -> torch.Tensor:
+#: the library's bound ``lcap_fid_slots``, kept by ``load``
+_launch = None
+
+
+def _check_out(out: torch.Tensor, rows: torch.Tensor) -> None:
+    if not isinstance(out, torch.Tensor):
+        raise TypeError("out must be a torch.Tensor")
+    if out.dtype != torch.int64 or out.shape != (rows.shape[0],):
+        raise ValueError(f"out must be int64 [{rows.shape[0]}], got "
+                         f"{out.dtype} {list(out.shape)}")
+    if out.device != rows.device or not out.is_contiguous():
+        raise ValueError("out must be contiguous on the rows' device")
+
+
+def fid_slots_rows(rows: torch.Tensor, n_slots: int,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Slot of every header row's target FID, as int64 on the rows'
-    device.  CUDA rows go through the kernel (or raise); CPU rows go
-    through ``fid_slots_rows_reference``."""
+    device, written into ``out`` when it is given.  CUDA rows go through
+    the kernel (or raise); CPU rows go through
+    ``fid_slots_rows_reference``."""
     global launches
     _check_rows(rows, n_slots)
-    if rows.device.type == "cpu":
-        return fid_slots_rows_reference(rows, n_slots)
-    if rows.device.type != "cuda":
-        raise ValueError(f"rows must live on cuda or cpu, not "
-                         f"{rows.device}")
+    if out is not None:
+        _check_out(out, rows)
+    device = rows.device
+    if device.type == "cpu":
+        got = fid_slots_rows_reference(rows, n_slots)
+        return got if out is None else out.copy_(got)
+    if device.type != "cuda":
+        raise ValueError(f"rows must live on cuda or cpu, not {device}")
     n = rows.shape[0]
-    out = torch.empty(n, dtype=torch.int64, device=rows.device)
+    if out is None:
+        out = torch.empty(n, dtype=torch.int64, device=device)
     if n == 0:
         return out
     if rows.data_ptr() % 16:
         raise ValueError("rows must be 16-byte aligned")
-    lib = load()
-    stream = torch.cuda.current_stream(rows.device).cuda_stream
-    rc = lib.lcap_fid_slots(rows.data_ptr(), out.data_ptr(), n,
-                            int(n_slots), rows.device.index or 0, stream)
+    if _launch is None:
+        load()
+    index = device.index
+    rc = _launch(rows.data_ptr(), out.data_ptr(), n, int(n_slots), index,
+                 torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"fid_slots kernel launch failed: cudaError {rc}")
     launches += 1

@@ -48,7 +48,7 @@ from repro_torch.core.session import connect              # noqa: E402
 from repro_torch.kernels import flash_attention as fa     # noqa: E402
 from repro_torch.kernels import stream_ops                # noqa: E402
 
-N_SLOTS = (1, 64, 65535, 65536, 1000003)
+N_SLOTS = (1, 3, 64, 65535, 65536, 1000003, (1 << 31) - 1)
 EDGE_FIDS = [(0, 0, 0), (1, 0, 0), ((1 << 64) - 1, (1 << 32) - 1,
                                     (1 << 32) - 1), (1 << 63, 1, 2)]
 
@@ -108,16 +108,29 @@ def header_rows(n: int, seed: int) -> torch.Tensor:
     return torch.from_numpy(hdr.view(np.uint8).reshape(len(hdr), 64).copy())
 
 
+#: rows the kernel is held at: one row, under one block, the main
+#: path's 1024 + the edge FIDs, one routing chunk and one row past it
+#: (a second pass of the grid-stride loop), and 2^20 (several rows a
+#: thread)
+KERNEL_ROWS = (1, 255, 1028, 1 << 16, (1 << 16) + 1, 1 << 20)
+
+
+@pytest.mark.parametrize("n", KERNEL_ROWS)
 @pytest.mark.parametrize("n_slots", N_SLOTS)
-def test_kernel_matches_plain_version(card, n_slots):
-    rows = header_rows(1 << 16, seed=n_slots)
+def test_kernel_matches_plain_version(card, n_slots, n):
+    # the last n rows: the four edge FIDs are always among them
+    rows = header_rows(n, seed=n_slots)[-n:]
+    want = stream_ops.fid_slots_rows_reference(rows, n_slots)
+    on_card = rows.to(card)
     before = stream_ops.launches
-    got = stream_ops.fid_slots_rows(rows.to(card), n_slots)
+    got = stream_ops.fid_slots_rows(on_card, n_slots)
+    out = torch.full((n,), -1, dtype=torch.int64, device=card)
+    assert stream_ops.fid_slots_rows(on_card, n_slots, out=out) is out
     torch.cuda.synchronize()
-    assert stream_ops.launches == before + 1
+    assert stream_ops.launches == before + 2
     assert got.device.type == "cuda" and got.dtype == torch.int64
-    assert torch.equal(got.cpu(),
-                       stream_ops.fid_slots_rows_reference(rows, n_slots))
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(out.cpu(), want)
 
 
 def test_kernel_edge_cases(card):
@@ -148,10 +161,12 @@ def test_cluster_routes_on_the_card_like_on_the_cpu(card):
             cluster.pump()
             out += [(pid, batch.to_wire(2)) for pid, batch in stream.fetch()]
             stream.commit()
-        return out, cluster.routing_reads
+        return out, cluster.routing_launches, cluster.routing_reads
     before = stream_ops.launches
-    on_card, reads = run("cuda")
-    assert stream_ops.launches - before == reads > 0
+    on_card, launches, reads = run("cuda")
+    # the first round hashes all 1000 records in one chunk
+    assert stream_ops.launches - before == launches > 0
+    assert launches < reads
     assert on_card == run("cpu")[0]
 
 
@@ -324,7 +339,7 @@ def test_activity_consumers_on_the_card_like_on_the_cpu(card, tmp_path):
     """chip_smoke.py's phase 7 at 4 x 4096 records: the mirror, policy
     engine, aggregator, audit trail and metrics database over a cluster
     routing on the card end in the same state as over one routing on
-    the CPU, every routing read is one kernel launch, and each run holds
+    the CPU, every routing chunk is one kernel launch, and each run holds
     against the plain reckoning from the generator's arrays."""
     import importlib.util
     from pathlib import Path
@@ -344,8 +359,9 @@ def test_activity_consumers_on_the_card_like_on_the_cpu(card, tmp_path):
         smoke.verify_activity(run, journals)
         states.append(smoke.consumer_state(run))
         run["mdb"].close()
-        reads = run["cluster"].routing_reads
-        assert launched == (reads if device == "cuda" else 0) and reads > 0
+        chunks = run["cluster"].routing_launches
+        assert launched == (chunks if device == "cuda" else 0)
+        assert 0 < chunks < run["cluster"].routing_reads
     assert states[0] == states[1]
 
 

@@ -259,6 +259,79 @@ def test_port_routes_every_record_to_the_slot_owner(packed):
     assert cluster.routing_reads == 4 * -(-1000 // 256)
 
 
+def test_routing_launches_count_the_chunks_of_a_round(packed, monkeypatch):
+    """Without a migration a routing round hashes all its reads together
+    in chunks of ``CHUNK_ROWS`` rows (patched down to 300, so chunks
+    split batches): ceil(rows / cap) launches a round.  While a migration
+    is in flight each read is hashed as it is read: one launch a read."""
+    cap = 300
+    monkeypatch.setattr(port_cluster, "CHUNK_ROWS", cap)
+    logs = make_journals(PORT, {k: v[:1000] for k, v in packed.items()},
+                         history=False)
+    cluster = port_cluster.LcapCluster({}, n_shards=3, n_slots=64,
+                                       batch_size=256, device="cpu")
+    port_session.connect(cluster).subscribe("g", auto_commit=False)
+
+    def round_counts() -> tuple:
+        before = (cluster.routing_launches, cluster.routing_reads,
+                  cluster.stats["routed"])
+        cluster.pump()
+        return tuple(a - b for a, b in zip(
+            (cluster.routing_launches, cluster.routing_reads,
+             cluster.stats["routed"]), before))
+
+    pids = list(logs)
+    cluster.add_producer(pids[0], logs[pids[0]])
+    assert round_counts() == (-(-1000 // cap), -(-1000 // 256), 1000)
+    for pid in pids[1:]:
+        cluster.add_producer(pid, logs[pid])
+    assert round_counts() == (-(-3000 // cap), 3 * -(-1000 // 256), 3000)
+    assert round_counts() == (0, 0, 0)
+    # the shards hold unconsumed records, so the migration stays in flight
+    cluster.migrate_slots(cluster.routing.slots_of(0)[:8], 1)
+    assert cluster._migration is not None
+    for pid, log in logs.items():
+        log.log_batch([T.unpack(b) for b in packed[pid][1000:1600]])
+    launches, reads, routed = round_counts()
+    assert routed == 2400 and launches == reads == 4 * -(-600 // 256)
+    assert cluster.stats["parked_records"] > 0
+
+
+def run_cancel(pkg, packed) -> dict:
+    """The migration's target dies while the migration parks records:
+    the cancel hands the parked records back to their owners
+    (``_reoffer_parked_locked``, which hashes them in one round)."""
+    logs = make_journals(pkg, {k: v[:1000] for k, v in packed.items()},
+                         history=False)
+    cluster = pkg.cluster.LcapCluster(logs, n_shards=3, n_slots=64,
+                                      batch_size=256, **pkg.kw)
+    sess = pkg.session.connect(cluster)
+    streams = [(g, sess.subscribe(spec)) for g, spec in subscriptions(pkg)
+               if g != "reader"]
+    cluster.pump()                       # routed, nothing consumed yet
+    # two sources, so that the parked rows go back to two owners
+    cluster.migrate_slots(cluster.routing.slots_of(0)[:8]
+                          + cluster.routing.slots_of(2)[:8], 1)
+    for pid, log in logs.items():
+        log.log_batch([pkg.R.unpack(b) for b in packed[pid][1000:2000]])
+    cluster._route()                     # parks the draining slots' rows
+    parked = len(cluster._parked)
+    cluster.kill_shard(1)                # the migration's target dies
+    trace = []
+    drain(cluster, logs, streams, trace)
+    return dict(snapshot(cluster, logs, trace), parked=parked)
+
+
+def test_cancelled_migration_hands_back_the_parked_records(packed):
+    ref, port = run_cancel(REF, packed), run_cancel(PORT, packed)
+    assert port["parked"] > 0
+    assert port["stats"]["migrations_cancelled"] == 1
+    assert port == ref
+    every = {(pid, i) for pid in packed for i in range(1, 2001)}
+    assert {(pid, i) for g, _k, _s, pid, ix, _w in port["trace"]
+            if g == "robinhood" for i in ix} == every
+
+
 def merged_metrics(pkg, packed) -> tuple:
     """One run with a registry attached: the cluster's merged snapshot
     and the cluster session's merge over the shards, each as

@@ -662,6 +662,7 @@ def failing_router(cluster):
     def batch_slots(batch):
         raise port_cluster.stream_ops.KernelCompileError("nvcc failed")
     cluster.batch_slots = batch_slots
+    cluster.batch_slots_many = batch_slots
 
 
 def test_kernel_fault_is_not_a_dead_remote_shard():
