@@ -104,6 +104,21 @@ Phases, in order; any failed check exits nonzero and prints no result:
             there with an equal step 4 loss) and one training step on
             the card against the CPU (loss and grad norm within 2e-2);
             neither kernel is launched;
+8a-8c.      phase 8's recipe, checks and numbers for the other families
+            that fit one card with fp32 AdamW state, at full width and
+            depth: 8a ``moe-train`` granite-moe-1b-a400m (24 layers, 32
+            experts top-8, 1.33 B parameters; the share of (token, k)
+            slots the profiled step drops at its capacity), 8b
+            ``ssm-train`` mamba2-780m (48 layers; its card-vs-CPU step
+            at 2 x 512 tokens, where the scan crosses a full 256-token
+            chunk), 8c ``audio-train`` whisper-small (12 + 12 layers, 8
+            clips of 1500 float32 N(0, 1) frames and 448 decoder tokens
+            a step; the reference's Trainer feeds no frames, so its
+            steps go through ``build_train_step`` directly, with no
+            MetricsDB and no restart probe, and its card-vs-CPU step
+            takes the frames; its model-FLOP share also with the
+            encoder's frames); no kernel launched, by each kernel's
+            count;
 9. moe      qwen3-moe-30b-a3b at full width and depth (48 layers, 128
             experts top-8, 30.08 B parameters in bf16, seeded random
             weights) through phase 5's serving path: 48 wgmma launches
@@ -190,8 +205,8 @@ Phases, in order; any failed check exits nonzero and prints no result:
             collective bytes, the rank's peak memory beside the card's
             and the dominant roofline term; (b) the one-card bound of
             every measured prefill and decode step of phases 5, 9-12,
-            12a and 12b (the medians of their warm calls) and of phase
-            8's training step: model FLOPs (6 N_active a
+            12a and 12b (the medians of their warm calls) and of phases
+            8-8c's training steps: model FLOPs (6 N_active a
             token to train, 2 N_active to serve) and
             ``estimate_hbm_bytes(n_dev=1)`` at the phase's own shape
             over the data sheet's 989 TFLOP/s and 3.35 TB/s, which must
@@ -204,7 +219,8 @@ Then a JSON line of serve numbers, one of wire numbers, one of activity
 numbers, one of training numbers, one of MoE serving numbers, one of SSD
 serving numbers, one of VLM serving numbers, one of audio serving
 numbers, one of gemma2 and one of qwen2.5 serving numbers, one of mesh
-numbers, one of roofline numbers, one of kernels,
+numbers, one of roofline numbers, one of phases 8a-8c's training numbers
+(``train_families``), one of kernels,
 the card's ``nvidia-smi`` line, and the result line ``{"ok": true,
 "device": {...}}`` last.  Imports nothing of
 JAX, of the reference package or of msgpack.
@@ -364,6 +380,20 @@ TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 128
 TRAIN_TOL = 2e-2
 #: fp32 parameters, gradients, m and v
 TRAIN_STATE_BYTES_PER_PARAM = 16
+#: phases 8a-8c: the MoE, SSD and encoder-decoder families that fit one
+#: card with that state, trained on phase 8's recipe at full width and
+#: depth: (tag, arch, keywords of ``train_run``).  whisper-small takes
+#: TRAIN_BATCH clips of AUDIO_TRAIN_SEQ decoder tokens (its decoder's
+#: context) and its encoder's n_frames frames; mamba2-780m's card-vs-CPU
+#: step runs at TRAIN_SEQ tokens, where its scan crosses a full chunk of
+#: 256 (at TRAIN_CPU_SEQ the chunk would be 128)
+AUDIO_TRAIN_SEQ = 448
+TRAIN_FAMILIES = (
+    ("moe-train", "granite-moe-1b-a400m", {}),
+    ("ssm-train", "mamba2-780m", {"cpu_batch": 2, "cpu_seq": TRAIN_SEQ}),
+    ("audio-train", "whisper-small", {"seq": AUDIO_TRAIN_SEQ}))
+#: the training phases' tags, whose steps phase 14 bounds
+TRAIN_TAGS = ("train",) + tuple(tag for tag, _a, _kw in TRAIN_FAMILIES)
 #: phases 9 and 10: the MoE and SSD families served at full width and
 #: depth on phase 5's path (SERVE_B prompts of SERVE_P tokens, SERVE_G
 #: generated, SERVE_REPLICAS replicas)
@@ -2286,7 +2316,7 @@ def record_metrics(trainer) -> list:
     return got
 
 
-def check_train_metrics(hist, got, hp, cfg) -> list:
+def check_train_metrics(hist, got, hp, cfg, tag: str = "train") -> list:
     """Every loss and grad norm finite, the first loss a sensible init's
     (tests/test_models.py: < 2 ln(vocab) + 1), ``lr`` the host
     schedule's; returns the grad norms."""
@@ -2294,20 +2324,23 @@ def check_train_metrics(hist, got, hp, cfg) -> list:
     losses = [h["loss"] for h in hist]
     norms = [float(m["grad_norm"]) for _s, m in got]
     check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
-          f"train: losses {losses} or grad norms {norms} not finite")
+          f"{tag}: losses {losses} or grad norms {norms} not finite")
     check(losses[0] < 2 * np.log(cfg.vocab_size) + 1,
-          f"train: first loss {losses[0]} >= 2 ln(vocab) + 1")
+          f"{tag}: first loss {losses[0]} >= 2 ln(vocab) + 1")
     want = [cosine_lr(s, peak=hp.peak_lr, warmup=hp.warmup,
                       total=hp.total_steps) for s, _m in got]
     check([m["lr"] for _s, m in got] == want,
-          f"train: lr {[m['lr'] for _s, m in got]} != the schedule's {want}")
+          f"{tag}: lr {[m['lr'] for _s, m in got]} != the schedule's {want}")
     return norms
 
 
-def train_card_vs_cpu(cfg, batch: int, seq: int, seed: int) -> dict:
+def train_card_vs_cpu(cfg, batch: int, seq: int, seed: int,
+                      extra=None, tag: str = "train") -> dict:
     """One ``build_train_step`` step of ``cfg`` on the card and on the CPU
-    from the same fp32 weights (drawn on the CPU) and the same batch:
-    loss and grad norm within ``TRAIN_TOL`` relative, ``lr`` equal."""
+    from the same fp32 weights (drawn on the CPU) and the same batch
+    (the pipeline's tokens and labels, and ``extra``'s keys, host
+    tensors): loss and grad norm within ``TRAIN_TOL`` relative, ``lr``
+    equal."""
     from repro_torch.data import ShardedTokenPipeline
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
@@ -2315,6 +2348,7 @@ def train_card_vs_cpu(cfg, batch: int, seq: int, seed: int) -> dict:
     hp = train_hp()
     data = ShardedTokenPipeline(cfg.vocab_size, seq, batch, 1, 0,
                                 seed=seed).batch_at(0)
+    data.update(extra or {})
     host = T.init_params(cfg, seed=seed, device="cpu", dtype=torch.float32)
     out = {}
     for dev in ("cuda", "cpu"):
@@ -2329,9 +2363,9 @@ def train_card_vs_cpu(cfg, batch: int, seq: int, seed: int) -> dict:
     card, cpu = out["cuda"], out["cpu"]
     for k in ("loss", "grad_norm"):
         check(abs(card[k] - cpu[k]) <= TRAIN_TOL * abs(cpu[k]),
-              f"train: card {k} {card[k]} vs CPU {cpu[k]}: beyond "
+              f"{tag}: card {k} {card[k]} vs CPU {cpu[k]}: beyond "
               f"{TRAIN_TOL} relative")
-    check(card["lr"] == cpu["lr"], f"train: lr {card['lr']} on the card, "
+    check(card["lr"] == cpu["lr"], f"{tag}: lr {card['lr']} on the card, "
           f"{cpu['lr']} on the CPU")
     return out
 
@@ -2387,22 +2421,231 @@ def top_device_ops(prof, n: int = 8) -> list:
             for e in events[:n]]
 
 
-def train_phase(seed: int, smi: str) -> dict:
+class StepLoop:
+    """``build_train_step`` and ``adamw.init`` driven directly, as the
+    reference's train cell drives them (``runtime/specs.py::batch_struct``
+    adds a family's keys), for a family whose batch the Trainer cannot
+    feed: the pipeline's tokens and labels plus ``extras(batch, step)``.
+    The attributes ``record_metrics`` and ``optimizer_ms`` read are the
+    Trainer's; each step is timed as ``Trainer.run`` times one, to the
+    end of its device work, the batches of a ``run`` drawn before its
+    first step's clock starts."""
+
+    def __init__(self, cfg, hp, batch: int, seq: int, seed: int, extras):
+        from repro_torch.data import ShardedTokenPipeline
+        from repro_torch.models import transformer as T
+        from repro_torch.optim import adamw
+        from repro_torch.runtime.steps import build_train_step
+        self.params = T.init_params(cfg, seed=seed, device="cuda",
+                                    dtype=torch.float32)
+        self.opt_state = adamw.init(self.params)
+        self.train_step = build_train_step(cfg, hp)
+        self.pipe = ShardedTokenPipeline(cfg.vocab_size, seq, batch, 1, 0,
+                                         seed=seed)
+        self.batch, self.extras = batch, extras
+        self.step = 0
+        self.history = []
+
+    def run(self, n_steps: int) -> list:
+        batches = [dict(next(self.pipe), **self.extras(self.batch,
+                                                       self.step + i))
+                   for i in range(n_steps)]
+        for batch in batches:
+            t0 = time.time()
+            self.params, self.opt_state, metrics = self.train_step(
+                self.params, self.opt_state, batch)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            self.step += 1
+            self.history.append({"step": self.step,
+                                 "loss": float(metrics["loss"]),
+                                 "time": dt})
+        return self.history
+
+
+def frame_extras(cfg, seed: int):
+    """An encoder-decoder's frames for ``StepLoop`` and the card-vs-CPU
+    step: float32 N(0, 1) embeddings (batch, n_frames, d_model) on the
+    host, drawn as the serving launcher draws them (``make_batch``),
+    from ``seed + step``."""
+    from repro_torch.launch import serve as S
+
+    def extras(batch: int, step: int) -> dict:
+        return {"frames": S.make_batch(cfg, batch, 1, seed=seed + step,
+                                       device="cpu")["frames"]}
+    return extras
+
+
+def routed_drops(routes, cfg, seq: int) -> dict:
+    """The share of (token, k) slots that a training step's routing
+    (``RouteLog`` calls) dropped at the capacity of ``seq`` tokens, over
+    every routed call: a layer recomputed in the backward pass routes
+    its same input again."""
+    from repro_torch.models import layers as L
+    dropped = [int((~keep).sum()) for _e, keep in routes.calls]
+    slots = routes.calls[0][1].numel()
+    return {"capacity": L.moe_capacity(cfg, seq),
+            "routed_calls": len(dropped),
+            "dropped_share": sum(dropped) / (slots * len(dropped)),
+            "dropped_share_min_max": [min(dropped) / slots,
+                                      max(dropped) / slots]}
+
+
+def encoder_layer_params(cfg) -> int:
+    """Parameters of an encoder-decoder's encoder layers."""
+    from repro_torch.models import transformer as M
+    sizes = []
+    M._walk(M.param_layout(cfg)["enc_layers"],
+            lambda _path, leaf: sizes.append(int(np.prod(leaf[0]))))
+    return sum(sizes)
+
+
+def restart_probe(probe, tag: str, seed: int, batch: int, seq: int) -> dict:
+    """Phase 8 (b): a Trainer of ``probe`` checkpoints at step 3, and a
+    new one resumes there with an equal step 4 loss; checkpoint bytes,
+    the host snapshot's, write's and restore's seconds, and the
+    operations that have no deterministic version."""
     import tempfile
     import warnings
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch import configs as C
     from repro_torch.checkpoint import ckpt as ckpt_mod
+    from repro_torch.runtime.train_loop import Trainer
+    hp = train_hp()
+    timing = {"snapshot_s": 0.0, "write_s": 0.0}
+    save = ckpt_mod.save_checkpoint
+
+    def timed_save(*a, **kw):
+        t = time.perf_counter()
+        paths = save(*a, **kw)
+        timing["write_s"] += time.perf_counter() - t
+        return paths
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    ckpt_mod.save_checkpoint = timed_save
+    try:
+        with tempfile.TemporaryDirectory() as wd, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            kw = dict(workdir=wd, hp=hp, global_batch=batch,
+                      seq_len=seq, n_hosts=TRAIN_HOSTS, ckpt_every=3,
+                      seed=seed, device="cuda")
+            first = Trainer(probe, **kw)
+            tree = first.checkpoint_tree
+
+            def timed_tree():
+                t = time.perf_counter()
+                out_tree = tree()
+                timing["snapshot_s"] += time.perf_counter() - t
+                return out_tree
+
+            first.checkpoint_tree = timed_tree
+            h1 = first.run(4)
+            drain_trainer(first)
+            check(first.committer.latest_committed() == 3,
+                  f"{tag}: committed {first.committer.latest_committed()}, "
+                  "not 3")
+            ck_dir = Path(wd) / "ckpt"
+            ckpt_bytes = sum(f.stat().st_size for f in ck_dir.iterdir()
+                             if f.name.startswith("step-00000003"))
+            first.close()
+            del first
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            second = Trainer(probe, **kw)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            check(second.step == 3 and all(p.step == 3
+                                           for p in second.pipes),
+                  f"{tag}: resumed at step {second.step}, pipes at "
+                  f"{[p.step for p in second.pipes]}, not 3")
+            check(second.committer.latest_committed() == 3,
+                  f"{tag}: the restarted committer does not see step 3")
+            h2 = second.run(1)
+            drain_trainer(second)
+            second.close()
+            del second
+            nondet = sorted({str(w.message).split(".")[0] for w in caught
+                             if "deterministic" in str(w.message)})
+    finally:
+        ckpt_mod.save_checkpoint = save
+        torch.use_deterministic_algorithms(False)
+    check(h2[0]["step"] == 4 and h2[0]["loss"] == h1[3]["loss"],
+          f"{tag}: the resumed step 4 loss {h2[0]['loss']} != the first "
+          f"run's {h1[3]['loss']}")
+    log(f"{tag}: restart probe ({TRAIN_PROBE_LAYERS} layers at full width):"
+        f" checkpoint at step 3 {ckpt_bytes} bytes, host snapshot "
+        f"{timing['snapshot_s']:.3f} s, write {timing['write_s']:.3f} s "
+        f"(off the training thread), restart and restore {restore_s:.3f} s;"
+        f" resumed at step 3, step 4 loss {h2[0]['loss']!r} = the first "
+        f"run's; ops without a deterministic version: {nondet or 'none'}")
+    return {"layers": TRAIN_PROBE_LAYERS,
+            "losses": [h["loss"] for h in h1],
+            "resumed_step4_loss": h2[0]["loss"],
+            "checkpoint_bytes": ckpt_bytes,
+            "snapshot_s": timing["snapshot_s"],
+            "write_s": timing["write_s"], "restore_s": restore_s,
+            "nondeterministic_ops": nondet}
+
+
+def train_phase(seed: int, smi: str) -> dict:
+    from repro_torch import configs as C
+    return train_run(C.get_config(TRAIN_ARCH), "train", seed, smi)
+
+
+def train_family_phase(cfg, tag: str, seed: int, smi: str, **kw) -> dict:
+    """Phases 8a-8c: ``train_run`` of another family at full width and
+    depth (an encoder-decoder with its frames, ``frame_extras``), and
+    each attention kernel's and ``fid_slots``'s launches in the phase,
+    which must be 0."""
+    from repro_torch.kernels import flash_attention as fa, stream_ops
+    before = (stream_ops.launches, fa.launches_sm90, fa.launches_simt)
+    if cfg.is_encoder_decoder:
+        kw["extras"] = frame_extras(cfg, seed)
+        log(f"{tag}: {cfg.arch_id}: {cfg.n_encoder_layers} encoder layers "
+            f"over {cfg.n_frames} float32 N(0, 1) frames a clip and "
+            f"{cfg.n_layers} decoder layers")
+    out = train_run(cfg, tag, seed, smi, **kw)
+    out["launches_by_kernel"] = dict(zip(
+        ("fid_slots", fa.SM90, fa.SIMT),
+        (n - b for n, b in zip((stream_ops.launches, fa.launches_sm90,
+                                fa.launches_simt), before))))
+    log(f"{tag}: kernel launches in the phase {out['launches_by_kernel']}")
+    check(not any(out["launches_by_kernel"].values()),
+          f"{tag}: kernel launches {out['launches_by_kernel']}")
+    name, ms, calls = out["top_device_ops_ms"][0]
+    log(f"{tag}: {cfg.arch_id} step {out['step_ms_median']:.3f} ms, "
+        f"{out['tokens_per_s']:.1f} tokens/s, model-FLOP share "
+        f"{100 * out['model_flop_share_bf16']:.3f} %, idle "
+        f"{100 * out['idle_share']:.3f} % of the profiled step, peak "
+        f"memory {out['peak_memory_gb']:.3f} GB; top device operation "
+        f"{name[:60]!r} {ms} ms in {calls} calls [{smi}]")
+    return out
+
+
+def train_run(cfg, tag: str, seed: int, smi: str, *,
+              batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ, extras=None,
+              cpu_batch: int = TRAIN_CPU_BATCH,
+              cpu_seq: int = TRAIN_CPU_SEQ) -> dict:
+    """Phase 8's recipe for ``cfg``, its lines and checks named by
+    ``tag``: (a) ``batch`` x ``seq`` tokens a step through the
+    ``Trainer`` on the card, 2 hosts' activity feeding MetricsDB, then
+    (b) the restart probe and (c) one step on the card against the CPU
+    at ``cpu_batch`` x ``cpu_seq``, both at TRAIN_PROBE_LAYERS layers.
+    With ``extras`` (a family's batch keys past tokens and labels,
+    ``extras(batch, step)``), which the Trainer does not feed, (a) drives
+    ``build_train_step`` directly (``StepLoop``), with no MetricsDB
+    and no restart probe."""
+    import contextlib
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import records as T
     from repro_torch.kernels import flash_attention as fa, stream_ops
     from repro_torch.models import transformer as M
     from repro_torch.runtime.train_loop import Trainer
-    cfg = C.get_config(TRAIN_ARCH)
     n_params = M.count_params(cfg)
     torch.cuda.empty_cache()
     total_b = torch.cuda.get_device_properties(0).total_memory
     state_b = TRAIN_STATE_BYTES_PER_PARAM * n_params
-    log(f"train: {TRAIN_ARCH} at full width and depth ({cfg.n_layers} "
+    log(f"{tag}: {cfg.arch_id} at full width and depth ({cfg.n_layers} "
         f"layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
         f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}): {n_params} "
         f"parameters; fp32 parameters, gradients, m and v "
@@ -2410,40 +2653,47 @@ def train_phase(seed: int, smi: str) -> dict:
         f"{(total_b - state_b) / 1e9:.3f} GB left for activations and "
         f"workspace; {torch.cuda.memory_allocated() / 1e9:.3f} GB still "
         f"allocated by earlier phases")
-    check(state_b < total_b, "train: the optimizer state does not fit")
+    check(state_b < total_b, f"{tag}: the optimizer state does not fit")
     hp = train_hp()
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch * seq
     slots0, flash0 = stream_ops.launches, fa.launches
-    out = {"arch": TRAIN_ARCH, "params": n_params, "layers": cfg.n_layers,
-           "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+    out = {"arch": cfg.arch_id, "params": n_params, "layers": cfg.n_layers,
+           "global_batch": batch, "seq_len": seq,
            "hp": dict(hp._asdict()), "state_gb": state_b / 1e9}
+    # a MoE step's routing, kept over the profiled step
+    routes = RouteLog() if cfg.n_experts else contextlib.nullcontext()
 
     # (a) full width and depth, the consumers attached
     with tempfile.TemporaryDirectory() as wd:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        trainer = Trainer(cfg, workdir=wd, hp=hp, global_batch=TRAIN_BATCH,
-                          seq_len=TRAIN_SEQ, n_hosts=TRAIN_HOSTS,
-                          ckpt_every=10 ** 9, seed=seed, device="cuda")
+        if extras is None:
+            trainer = Trainer(cfg, workdir=wd, hp=hp, global_batch=batch,
+                              seq_len=seq, n_hosts=TRAIN_HOSTS,
+                              ckpt_every=10 ** 9, seed=seed, device="cuda")
+        else:
+            trainer = StepLoop(cfg, hp, batch, seq, seed, extras)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         got = record_metrics(trainer)
         trainer.run(TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, routes:
             hist = trainer.run(1)
         prof_ms = hist[-1]["time"] * 1e3
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        norms = check_train_metrics(hist, got, hp, cfg)
+        norms = check_train_metrics(hist, got, hp, cfg, tag)
         opt_ms = optimizer_ms(trainer)
-        drain_trainer(trainer)
-        n_steps = len(hist)
-        rows = dict(trainer.metrics[0].query(
-            "SELECT type, COUNT(*) FROM events GROUP BY type"))
-        want = {t: n_steps * TRAIN_HOSTS for t in (
-            T.CL_STEP_COMMIT, T.CL_HEARTBEAT, T.CL_DATA_CONSUME)}
-        check(rows == want, f"train: MetricsDB rows by type {rows}, the "
-              f"steps x hosts imply {want}")
-        trainer.close()
+        rows = None
+        if extras is None:
+            drain_trainer(trainer)
+            n_steps = len(hist)
+            rows = dict(trainer.metrics[0].query(
+                "SELECT type, COUNT(*) FROM events GROUP BY type"))
+            want = {t: n_steps * TRAIN_HOSTS for t in (
+                T.CL_STEP_COMMIT, T.CL_HEARTBEAT, T.CL_DATA_CONSUME)}
+            check(rows == want, f"{tag}: MetricsDB rows by type {rows}, "
+                  f"the steps x hosts imply {want}")
+            trainer.close()
         del trainer
     timed = [h["time"] for h in hist[TRAIN_WARMUP_STEPS:-1]]
     step_s = statistics.median(timed)
@@ -2461,7 +2711,7 @@ def train_phase(seed: int, smi: str) -> dict:
         "idle_share": 1 - busy_ms / prof_ms, "peak_memory_gb": peak_gb,
         "optimizer_ms": opt_ms, "device_ms_by_class": by_class,
         "top_device_ops_ms": top, "metricsdb_rows": rows})
-    log(f"train: {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, n_micro "
+    log(f"{tag}: {batch} x {seq} tokens a step, n_micro "
         f"{hp.n_micro}, remat {hp.remat_policy!r}, {hp.attn_impl} attention;"
         f" step {out['step_ms_median']:.3f} ms (median of "
         f"{TRAIN_TIMED_STEPS} after {TRAIN_WARMUP_STEPS} warm-up: "
@@ -2469,105 +2719,64 @@ def train_phase(seed: int, smi: str) -> dict:
         f"{out['tokens_per_s']:.1f} tokens/s, model FLOPs "
         f"(6 N tokens / step) {100 * out['model_flop_share_bf16']:.3f} % of "
         f"the bf16 dense peak (989 TFLOP/s) [{smi}]")
-    log(f"train: profiled step {prof_ms:.3f} ms wall, device busy "
+    log(f"{tag}: profiled step {prof_ms:.3f} ms wall, device busy "
         f"{busy_ms:.3f} ms (idle {100 * out['idle_share']:.3f} %), by kind "
         f"of kernel (ms): {', '.join(f'{k} {v:.3f}' for k, v in by_class.items())}"
         f"; one AdamW update alone {opt_ms:.3f} ms by events; peak memory "
         f"{peak_gb:.3f} GB; init {init_s:.3f} s [{smi}]")
-    log(f"train: top device operations (ms, calls): "
+    log(f"{tag}: top device operations (ms, calls): "
         f"{[(name[:60], ms, n) for name, ms, n in top]}")
-    log(f"train: losses {out['losses']}, grad norms {norms}; MetricsDB "
-        f"rows {rows}; journals trimmed behind the consumers")
+    if cfg.n_experts:
+        out.update(routed_drops(routes, cfg, seq))
+        log(f"{tag}: the profiled step's routing at capacity "
+            f"{out['capacity']} slots per expert and row dropped "
+            f"{100 * out['dropped_share']:.4f} % of its (token, k) slots "
+            f"(over {out['routed_calls']} routed calls, recomputes "
+            f"included; by call from "
+            f"{100 * out['dropped_share_min_max'][0]:.4f} to "
+            f"{100 * out['dropped_share_min_max'][1]:.4f} %); the gradient "
+            f"flows through kept slots only")
+    if cfg.is_encoder_decoder:
+        enc = encoder_layer_params(cfg)
+        frames = batch * cfg.n_frames
+        out.update({"encoder_layer_params": enc, "frames": frames,
+                    "model_flop_share_bf16_with_frames":
+                    (6.0 * enc * frames + 6.0 * (n_params - enc) * tokens)
+                    / step_s / BF16_FLOP_PER_S})
+        log(f"{tag}: with the encoder's frames (6 x {enc} encoder-layer "
+            f"parameters x {frames} frames + 6 x the other "
+            f"{n_params - enc} x {tokens} tokens) the model FLOPs are "
+            f"{100 * out['model_flop_share_bf16_with_frames']:.3f} % of the "
+            f"bf16 dense peak [{smi}]")
+    if extras is None:
+        log(f"{tag}: losses {out['losses']}, grad norms {norms}; MetricsDB "
+            f"rows {rows}; journals trimmed behind the consumers")
+    else:
+        log(f"{tag}: losses {out['losses']}, grad norms {norms}; no "
+            "MetricsDB rows and no restart probe: the reference's Trainer "
+            "feeds only the pipeline's tokens and labels "
+            "(src/repro/runtime/train_loop.py:113-116), so these steps "
+            "went through build_train_step directly")
 
     # (b) restart probe: full width, TRAIN_PROBE_LAYERS layers
-    probe = cfg.replace(n_layers=TRAIN_PROBE_LAYERS)
-    timing = {"snapshot_s": 0.0, "write_s": 0.0}
-    save = ckpt_mod.save_checkpoint
-
-    def timed_save(*a, **kw):
-        t = time.perf_counter()
-        paths = save(*a, **kw)
-        timing["write_s"] += time.perf_counter() - t
-        return paths
-
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    ckpt_mod.save_checkpoint = timed_save
-    try:
-        with tempfile.TemporaryDirectory() as wd, \
-                warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            kw = dict(workdir=wd, hp=hp, global_batch=TRAIN_BATCH,
-                      seq_len=TRAIN_SEQ, n_hosts=TRAIN_HOSTS, ckpt_every=3,
-                      seed=seed, device="cuda")
-            first = Trainer(probe, **kw)
-            tree = first.checkpoint_tree
-
-            def timed_tree():
-                t = time.perf_counter()
-                out_tree = tree()
-                timing["snapshot_s"] += time.perf_counter() - t
-                return out_tree
-
-            first.checkpoint_tree = timed_tree
-            h1 = first.run(4)
-            drain_trainer(first)
-            check(first.committer.latest_committed() == 3,
-                  f"train: committed {first.committer.latest_committed()}, "
-                  "not 3")
-            ck_dir = Path(wd) / "ckpt"
-            ckpt_bytes = sum(f.stat().st_size for f in ck_dir.iterdir()
-                             if f.name.startswith("step-00000003"))
-            first.close()
-            del first
-            torch.cuda.empty_cache()
-            t0 = time.perf_counter()
-            second = Trainer(probe, **kw)
-            torch.cuda.synchronize()
-            restore_s = time.perf_counter() - t0
-            check(second.step == 3 and all(p.step == 3
-                                           for p in second.pipes),
-                  f"train: resumed at step {second.step}, pipes at "
-                  f"{[p.step for p in second.pipes]}, not 3")
-            check(second.committer.latest_committed() == 3,
-                  "train: the restarted committer does not see step 3")
-            h2 = second.run(1)
-            drain_trainer(second)
-            second.close()
-            del second
-            nondet = sorted({str(w.message).split(".")[0] for w in caught
-                             if "deterministic" in str(w.message)})
-    finally:
-        ckpt_mod.save_checkpoint = save
-        torch.use_deterministic_algorithms(False)
-    check(h2[0]["step"] == 4 and h2[0]["loss"] == h1[3]["loss"],
-          f"train: the resumed step 4 loss {h2[0]['loss']} != the first "
-          f"run's {h1[3]['loss']}")
-    out["restart"] = {"layers": TRAIN_PROBE_LAYERS,
-                      "losses": [h["loss"] for h in h1],
-                      "resumed_step4_loss": h2[0]["loss"],
-                      "checkpoint_bytes": ckpt_bytes,
-                      "snapshot_s": timing["snapshot_s"],
-                      "write_s": timing["write_s"], "restore_s": restore_s,
-                      "nondeterministic_ops": nondet}
-    log(f"train: restart probe ({TRAIN_PROBE_LAYERS} layers at full width):"
-        f" checkpoint at step 3 {ckpt_bytes} bytes, host snapshot "
-        f"{timing['snapshot_s']:.3f} s, write {timing['write_s']:.3f} s "
-        f"(off the training thread), restart and restore {restore_s:.3f} s;"
-        f" resumed at step 3, step 4 loss {h2[0]['loss']!r} = the first "
-        f"run's; ops without a deterministic version: {nondet or 'none'}")
+    probe = cfg.replace(n_layers=TRAIN_PROBE_LAYERS, n_encoder_layers=min(
+        cfg.n_encoder_layers, TRAIN_PROBE_LAYERS))
+    out["restart"] = None if extras else restart_probe(probe, tag, seed,
+                                                       batch, seq)
 
     # (c) the same step on the card and on the CPU
-    cmp_ = train_card_vs_cpu(probe, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, seed)
+    cmp_ = train_card_vs_cpu(probe, cpu_batch, cpu_seq, seed,
+                             extras and extras(cpu_batch, 0), tag)
     out["card_vs_cpu"] = cmp_
-    log(f"train: one step of the probe config at {TRAIN_CPU_BATCH} x "
-        f"{TRAIN_CPU_SEQ} tokens, card vs CPU: loss {cmp_['cuda']['loss']} /"
+    log(f"{tag}: one step of the probe config at {cpu_batch} x "
+        f"{cpu_seq} tokens, card vs CPU: loss {cmp_['cuda']['loss']} /"
         f" {cmp_['cpu']['loss']}, grad norm {cmp_['cuda']['grad_norm']} / "
         f"{cmp_['cpu']['grad_norm']}, lr {cmp_['cuda']['lr']} (within "
         f"{TRAIN_TOL} relative)")
     out["launches"] = {"fid_slots": stream_ops.launches - slots0,
                        "flash_attention": fa.launches - flash0}
     check(out["launches"] == {"fid_slots": 0, "flash_attention": 0},
-          f"train: kernel launches {out['launches']}: training runs neither "
+          f"{tag}: kernel launches {out['launches']}: training runs neither "
           "TPU kernel's port")
     return out
 
@@ -3732,8 +3941,8 @@ def measured_rates(smi: str) -> dict:
 def roofline_phase(smi: str, measured: dict) -> dict:
     """Phase 14: (a) the dry run on the fake 16x16 mesh, (b) the one-card
     bound of each measured step of phases 5, 8-12, 12a and 12b (the
-    serving phases' medians of their warm calls, ``warm_serve``; phase
-    8's median step), (c) the card's rates.  ``measured`` maps a phase's
+    serving phases' medians of their warm calls, ``warm_serve``; phases
+    8-8c's median steps), (c) the card's rates.  ``measured`` maps a phase's
     tag to its record."""
     from repro_torch import configs as C
     from repro_torch.kernels import flash_attention as fa, stream_ops
@@ -3769,11 +3978,13 @@ def roofline_phase(smi: str, measured: dict) -> dict:
                            "first_call_ms": res["first_call_" + key],
                            **one_card_bound(cfg, ShapeConfig(
                                kind, seq, B, kind), 1, res[key])})
-    tr = measured["train"]
-    bounds.append({"phase": "train", "arch": TRAIN_ARCH, "kind": "train",
-                   **one_card_bound(C.get_config(TRAIN_ARCH), ShapeConfig(
-                       "train", TRAIN_SEQ, TRAIN_BATCH, "train"),
-                       TRAIN_HP["n_micro"], tr["step_ms_median"])})
+    for tag in TRAIN_TAGS:
+        tr = measured[tag]
+        bounds.append({"phase": tag, "arch": tr["arch"], "kind": "train",
+                       **one_card_bound(C.get_config(tr["arch"]), ShapeConfig(
+                           "train", tr["seq_len"], tr["global_batch"],
+                           "train"), tr["hp"]["n_micro"],
+                           tr["step_ms_median"])})
     for b in bounds:
         spread = (f" (median of {b['warm_calls']} warm calls, min-max "
                   f"{b['measured_min_max_ms'][0]:.4f}-"
@@ -3859,6 +4070,9 @@ def main() -> int:
     wire = timed("wire", wire_phase, args.seed, smi)
     act = timed("activity", activity_phase, args.seed, smi)
     tr = timed("train", train_phase, args.seed, smi)
+    trf = {tag: timed(tag, train_family_phase, C.get_config(arch), tag,
+                      args.seed, smi, **kw)
+           for tag, arch, kw in TRAIN_FAMILIES}
     mo = timed("moe", moe_phase, args.seed, smi)
     sm = timed("ssm", ssm_phase, args.seed, smi)
     vlm_layers = C.get_config(VLM_ARCH).n_layers
@@ -3877,7 +4091,7 @@ def main() -> int:
     ms = timed("mesh", mesh_phase, args.seed, smi, sv, tr)
     rl = timed("roofline", roofline_phase, smi,
                {"serve": sv, "moe": mo, "ssm": sm, "vlm": vl, "audio": au,
-                "gemma": gm, "qwen": qw, "train": tr})
+                "gemma": gm, "qwen": qw, "train": tr, **trf})
     log(f"time: phases {json.dumps(phase_s)}, "
         f"{sum(phase_s.values()):.1f} s in all")
     at = k["sizes"][BATCH]
@@ -3893,6 +4107,9 @@ def main() -> int:
                           "shard_daemons": wire["daemons"]["launches"]},
         "activity_launches": act["launches"],
         "train_launches": tr["launches"]["fid_slots"],
+        "train_families_launches": {
+            tag: r["launches_by_kernel"]["fid_slots"]
+            for tag, r in trf.items()},
         # each serving phase's own run, counted from 0 like the main path's
         "serve_launches": sv["fid_slots_launches"],
         "moe_launches": mo["fid_slots_launches"],
@@ -3937,6 +4154,8 @@ def main() -> int:
         # each serving phase's own run, counted from 0 like phase 5's
         "launches_by_phase": {"serve": sv["attention_launches"][kernel],
                               "train": tr["launches"]["flash_attention"],
+                              **{tag: r["launches_by_kernel"][kernel]
+                                 for tag, r in trf.items()},
                               "moe": mo["attention_launches"][kernel],
                               "ssm": sm["attention_launches"][kernel],
                               "vlm": vl["attention_launches"][kernel],
@@ -3991,6 +4210,7 @@ def main() -> int:
     print(json.dumps({"qwen": qw}), flush=True)
     print(json.dumps({"mesh": ms}), flush=True)
     print(json.dumps({"roofline": rl}), flush=True)
+    print(json.dumps({"train_families": trf}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,12 @@ with a prefill one token longer within 0.12 (phase 12a).  The activity
 consumers of ``chip_smoke.py``'s phase 7 over a cluster routing on the
 card must end in the state they reach over one routing on the CPU, a
 training step on the card must agree with the same step on the CPU
-(phase 8), and one MoE layer and one SSD layer in float32 must agree
-between card and CPU (phases 9 and 10: routing equal, outputs within
-1e-5 and 1e-4), and so
+(phase 8, and phases 8a-8c's families, whisper-small with its frames),
+phases 8a-8c's helper must pass its checks at smoke size with no kernel
+launched (and, on the CPU, the Trainer must refuse an encoder-decoder,
+to which it feeds no frames), and one MoE layer and one SSD layer in
+float32 must agree between card and CPU (phases 9 and 10: routing
+equal, outputs within 1e-5 and 1e-4), and so
 must one encoder layer and one decoder layer of whisper-small (phase 12:
 within 1e-4).  On a one-rank NCCL mesh (phase 13) the sharded path runs
 the unsharded operations: a flash prefill and decode steps within 1e-3,
@@ -365,10 +368,16 @@ def test_activity_consumers_on_the_card_like_on_the_cpu(card, tmp_path):
     assert states[0] == states[1]
 
 
-def test_train_step_on_the_card_like_on_the_cpu(card):
-    """chip_smoke.py's phase 8 (c) at the smoke config: one training step
-    on the card and on the CPU from the same weights and batch, loss and
-    grad norm within 2e-2 relative, lr equal."""
+TRAIN_ARCHS = ["starcoder2-3b", "granite-moe-1b-a400m", "mamba2-780m",
+               "whisper-small"]
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_the_card_like_on_the_cpu(card, arch):
+    """chip_smoke.py's phase 8 (c), and 8a-8c's, at the smoke config: one
+    training step on the card and on the CPU from the same weights and
+    batch (whisper's with its frames), loss and grad norm within 2e-2
+    relative, lr equal."""
     import importlib.util
     from pathlib import Path
     from repro_torch import configs as C
@@ -376,10 +385,51 @@ def test_train_step_on_the_card_like_on_the_cpu(card):
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    cfg = C.get_smoke(arch)
+    extra = (smoke.frame_extras(cfg, 0)(4, 0) if cfg.is_encoder_decoder
+             else None)
     before = (stream_ops.launches, fa.launches)
-    out = smoke.train_card_vs_cpu(C.get_smoke("starcoder2-3b"), 4, 32, 0)
+    out = smoke.train_card_vs_cpu(cfg, 4, 32, 0, extra)
     assert out["cuda"]["lr"] == out["cpu"]["lr"]
     assert (stream_ops.launches, fa.launches) == before
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS[1:])
+def test_train_family_phase_at_smoke_size(card, arch):
+    """chip_smoke.py's phases 8a-8c (``train_family_phase``) at the smoke
+    config: every check of the phase passes (finite losses and grad
+    norms, the schedule's lr, MetricsDB rows and the restart probe but
+    for whisper, card vs CPU), and no kernel is launched."""
+    from repro_torch import configs as C
+    smoke = load_smoke()
+    cfg = C.get_smoke(arch)
+    tag = {"moe": "moe-train", "ssm": "ssm-train", "audio": "audio-train"}[
+        cfg.family]
+    out = smoke.train_family_phase(cfg, tag, 0, "test", seq=32)
+    assert out["launches_by_kernel"] == {
+        "fid_slots": 0, fa.SM90: 0, fa.SIMT: 0}
+    assert len(out["step_ms"]) == smoke.TRAIN_TIMED_STEPS
+    assert (out["restart"] is None) == cfg.is_encoder_decoder
+    assert (out["metricsdb_rows"] is None) == cfg.is_encoder_decoder
+    assert ("dropped_share" in out) == bool(cfg.n_experts)
+
+
+def test_trainer_feeds_no_frames():
+    """Why phase 8c drives ``build_train_step`` directly: the Trainer
+    feeds only the pipeline's tokens and labels, as the reference's
+    does (``src/repro/runtime/train_loop.py:113-116``), so an
+    encoder-decoder's first step finds no frames.  Runs on the CPU."""
+    import tempfile
+    from repro_torch import configs as C
+    from repro_torch.runtime.train_loop import Trainer
+    with tempfile.TemporaryDirectory() as wd:
+        trainer = Trainer(C.get_smoke("whisper-small"), workdir=wd,
+                          global_batch=2, seq_len=8, device="cpu")
+        try:
+            with pytest.raises(ValueError, match="frames"):
+                trainer.run(1)
+        finally:
+            trainer.close()
 
 
 def test_flash_kernel_refuses_inputs_that_need_grad(card):

@@ -27,6 +27,20 @@ from repro_torch.optim import adamw as PA                 # noqa: E402
 from repro_torch.runtime import elastic as PE             # noqa: E402
 
 DENSE = ["granite-8b", "starcoder2-3b", "qwen2.5-14b", "gemma2-9b"]
+#: the archs whose checkpoints cross packages, and leaves of each that
+#: must be among the files' (the optimizer's first moment of a slot-0
+#: layer): the expert stacks, the SSD's decay, skip and conv leaves, the
+#: encoder's layers
+CROSS = {"starcoder2-3b": ["['opt'].m['body']['slot0']['attn']['wq']"],
+         "gemma2-9b": ["['opt'].m['body']['slot0']['attn']['wq']"],
+         "granite-moe-1b-a400m": [
+             f"['opt'].m['body']['slot0']['moe']['{k}']"
+             for k in ("w_router", "w_gate", "w_up", "w_down")],
+         "mamba2-780m": [f"['opt'].m['body']['slot0']['ssm']['{k}']"
+                         for k in ("A_log", "skip_D", "conv_w", "conv_b")],
+         "whisper-small": ["['opt'].m['enc_body']['slot0']['attn']['wq']",
+                           "['opt'].m['enc_body']['slot0']['mlp']['w_up']",
+                           "['opt'].m['body']['slot0']['xattn']['wk']"]}
 
 
 def flat(tree) -> dict:
@@ -76,7 +90,7 @@ def test_params_to_jax_inverts_params_from_jax(arch):
         np.testing.assert_array_equal(ours[name], a, err_msg=name)
 
 
-@pytest.mark.parametrize("arch", ["starcoder2-3b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", list(CROSS))
 def test_reference_checkpoint_restores_in_the_port(tmp_path, arch):
     _, tree = ref_state(arch)
     RCk.save_checkpoint(tree, 5, str(tmp_path), n_shards=3)
@@ -103,13 +117,14 @@ def test_reference_checkpoint_restores_in_the_port(tmp_path, arch):
     assert rules is None          # no rules on the one-device record
     assert opt.step == 1 and isinstance(opt.step, int)
     assert len(params["layers"]) == cfg.n_layers
+    assert len(params.get("enc_layers", [])) == cfg.n_encoder_layers
     assert all(t.dtype == torch.float32 for t in PA.leaves(params))
     again = flat(as_ref_layout(cfg, params, opt))
     for name, a in want.items():
         np.testing.assert_array_equal(again[name], a, err_msg=name)
 
 
-@pytest.mark.parametrize("arch", ["starcoder2-3b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", list(CROSS))
 def test_port_checkpoint_restores_in_the_reference(tmp_path, arch):
     _, tree = ref_state(arch, seed=2)
     params, opt = port_state(tree)
@@ -130,7 +145,7 @@ def test_port_checkpoint_restores_in_the_reference(tmp_path, arch):
            for d in ("port", "ref")]
     assert idx[0] == idx[1]
     assert idx[0]["leaves"][0] == "['opt'].step"
-    assert "['opt'].m['body']['slot0']['attn']['wq']" in idx[0]["leaves"]
+    assert all(leaf in idx[0]["leaves"] for leaf in CROSS[arch])
     for shard in range(2):
         zs = [np.load(tmp_path / d / f"step-00000009-shard{shard}.npz")
               for d in ("port", "ref")]
