@@ -138,6 +138,20 @@ Phases, in order; any failed check exits nonzero and prints no result:
             decode at P against a P + 1 token prefill within 0.12; one SSD
             layer in float32 on the card against the CPU (output, cache
             and two decode steps within 1e-4);
+10a. hybrid jamba-v0.1-52b cut to one period of its layer pattern (8 of
+            32 layers: one stage of a four-stage pipeline, one period a
+            card; 13,267,656,416 parameters, 26.54 GB of bf16 weights, both
+            checked), every width as published: SSD layers at 0-3 and
+            5-7, attention (no RoPE) at 4, MoE (16 experts, top-2,
+            capacity 320 a row) at the odd layers; phase 9's path, checks
+            and numbers with the counts from the layer pattern: 1 wgmma
+            launch a prefill (wrapper, and the kernel's own count on the
+            card) and none of the CUDA-core kernel, 4 routed layers a
+            pass, none dropped at decode, no ``fid_slots`` launch; the
+            logits checks held with the routes replayed, and by the
+            float32 computation (as phase 11's) where bf16 noise exceeds
+            0.12; the first MoE layer (1) and the first SSD layer (0) in
+            float32 on the card against the CPU;
 11. vlm     pixtral-12b at full width and depth (40 layers, 12.77 B
             parameters in bf16, seeded random weights) through phase 5's
             serving path, the first 256 positions of each prompt being
@@ -205,7 +219,8 @@ Phases, in order; any failed check exits nonzero and prints no result:
             collective bytes, the rank's peak memory beside the card's
             and the dominant roofline term; (b) the one-card bound of
             every measured prefill and decode step of phases 5, 9-12,
-            12a and 12b (the medians of their warm calls) and of phases
+            10a, 12a and 12b (the medians of their warm calls, each at
+            the depth it was served) and of phases
             8-8c's training steps: model FLOPs (6 N_active a
             token to train, 2 N_active to serve) and
             ``estimate_hbm_bytes(n_dev=1)`` at the phase's own shape
@@ -217,9 +232,9 @@ Phases, in order; any failed check exits nonzero and prints no result:
 
 Then a JSON line of serve numbers, one of wire numbers, one of activity
 numbers, one of training numbers, one of MoE serving numbers, one of SSD
-serving numbers, one of VLM serving numbers, one of audio serving
-numbers, one of gemma2 and one of qwen2.5 serving numbers, one of mesh
-numbers, one of roofline numbers, one of phases 8a-8c's training numbers
+serving numbers, one of hybrid serving numbers, one of VLM serving
+numbers, one of audio serving numbers, one of gemma2 and one of qwen2.5
+serving numbers, one of mesh numbers, one of roofline numbers, one of phases 8a-8c's training numbers
 (``train_families``), one of kernels,
 the card's ``nvidia-smi`` line, and the result line ``{"ok": true,
 "device": {...}}`` last.  Imports nothing of
@@ -421,8 +436,21 @@ ENCDEC_LAYER_TOL = 1e-4
 #: qwen2.5-14b takes phase 5's traffic
 GEMMA_ARCH, GEMMA_B, GEMMA_P = "gemma2-9b", 2, 8192
 QWEN_ARCH = "qwen2.5-14b"
+#: phase 10a: the hybrid family on phase 9's path.  jamba-v0.1-52b's
+#: 32 layers (102.9 GB in bf16) fit no card; the deployment served is a
+#: four-stage pipeline of four cards, one period of 8 layers a card, and
+#: this card is one stage: n_layers 32 -> 8 (hybrid_period), every width
+#: as published, so one attention layer, seven SSD layers and four MoE
+#: layers (16 experts, top-2, capacity factor 1.25) in the published
+#: ratio.  It holds the first stage's embedding and the last stage's
+#: unembedding too, and all 16 experts of each MoE layer.
+HYBRID_ARCH = "jamba-v0.1-52b"
+HYBRID_CUT = "one period; four-stage pipeline"
+HYBRID_PARAMS = 13_267_656_416
+HYBRID_WEIGHT_BYTES = 26_535_687_296
 #: the serving phases' tags, whose records phase 14 bounds
-SERVE_TAGS = ("serve", "moe", "ssm", "vlm", "audio", "gemma", "qwen")
+SERVE_TAGS = ("serve", "moe", "ssm", "hybrid", "vlm", "audio", "gemma",
+              "qwen")
 #: phases 11 and 12: where two bf16 paths' logits differ by more than
 #: LOGIT_ATOL, how much farther from the float32 computation than the
 #: other path the path under test may be, in mean |diff| (relative)
@@ -3075,6 +3103,9 @@ def profiled_serve(cfg, params, tokens, n_attn: int, tag: str,
           f", counted on the card {on_card}")
     out = {"profiled_prefill_ms": prefill_wall_ms,
            "prefill_device_busy_ms": device_busy_ms(prof),
+           "prefill_idle_share": 1 - device_busy_ms(prof) / prefill_wall_ms,
+           "prefill_device_ms_by_class": device_ms_by_class(prof),
+           "prefill_top_device_ops_ms": top_device_ops(prof),
            "kernel_ms_in_prefill": device_busy_ms(prof, fa.SM90),
            "profiled_kernel_launches": seen,
            "device_counted_launches": on_card}
@@ -3097,6 +3128,13 @@ def log_profiled(tag: str, res: dict) -> None:
         f"which the wgmma kernel {res['kernel_ms_in_prefill']:.3f} ms; "
         f"kernels by name {res['profiled_kernel_launches']}, counted on the "
         f"card {res['device_counted_launches']}")
+    pre = res["prefill_device_ms_by_class"]
+    top = res["prefill_top_device_ops_ms"]
+    log(f"{tag} (profiled prefill alone): idle "
+        f"{100 * res['prefill_idle_share']:.3f} %; device ms by kind of "
+        f"kernel: {', '.join(f'{k} {v:.3f}' for k, v in pre.items())}; top "
+        f"device operations (ms, calls): "
+        f"{[(n[:60], ms, c) for n, ms, c in top]}")
     by_class = res["device_ms_by_class"]
     log(f"{tag} (profiled serving run): {res['profiled_wall_ms']:.3f} ms "
         f"wall, device busy {res['device_busy_ms']:.3f} ms (idle "
@@ -3129,10 +3167,28 @@ def profiled_decode(cfg, params, step, cache, pos) -> dict:
             "decode_top_device_ops_ms": top_device_ops(prof)}
 
 
-def family_params(arch: str, seed: int, tag: str):
+def hybrid_config():
+    """jamba-v0.1-52b cut to one period of its layer pattern (HYBRID_ARCH's
+    comment): the full config but for ``n_layers``."""
+    from repro_torch import configs as C
+    cfg = C.get_config(HYBRID_ARCH)
+    return cfg.replace(n_layers=cfg.hybrid_period)
+
+
+def phase_config(res: dict):
+    """The configuration a serving phase's record ``res`` ran: its arch's,
+    at the depth it was served."""
+    from repro_torch import configs as C
+    return C.get_config(res["arch"]).replace(n_layers=res["layers"])
+
+
+def family_params(arch: str, seed: int, tag: str, cfg=None, cut: str = ""):
+    """``arch``'s seeded random weights on the card, at its full config or
+    at ``cfg`` (the same widths, fewer layers; ``cut`` says why)."""
     from repro_torch import configs as C
     from repro_torch.models import transformer as T
-    cfg = C.get_config(arch)
+    depth = C.get_config(arch).n_layers
+    cfg = cfg or C.get_config(arch)
     # phase 8's trainers hold themselves in reference cycles (a wrapped
     # checkpoint_tree): collect them before measuring what is left
     gc.collect()
@@ -3148,7 +3204,9 @@ def family_params(arch: str, seed: int, tag: str):
            "layers": cfg.n_layers, "weight_bytes": weight_bytes,
            "init_s": init_s, "batch": SERVE_B, "prompt_len": SERVE_P,
            "gen_len": SERVE_G, "held_by_earlier_phases_gb": held_gb}
-    log(f"{tag}: {arch} at full width and depth ({cfg.n_layers} layers, "
+    size = ("full width and depth" if cfg.n_layers == depth else
+            f"full width, {cfg.n_layers} of {depth} layers ({cut})")
+    log(f"{tag}: {arch} at {size} ({cfg.n_layers} layers, "
         f"d_model {cfg.d_model}, {out['params']} parameters, "
         f"{out['active_params']} active): {weight_bytes / 1e9:.3f} GB of "
         f"weights on the card in {init_s:.3f} s; {held_gb:.3f} GB were "
@@ -3156,24 +3214,107 @@ def family_params(arch: str, seed: int, tag: str):
     return cfg, params, out
 
 
-def moe_phase(seed: int, smi: str) -> dict:
+def routed_layers(cfg) -> int:
+    """Layers whose MLP is an MoE: the router's calls in one pass."""
+    return sum(cfg.layer_is_moe(l % cfg.scan_period)
+               for l in range(cfg.n_layers))
+
+
+def attention_layers(cfg) -> int:
+    """Attention layers: the attention kernel's launches a prefill."""
+    return sum(cfg.layer_kind(l % cfg.scan_period) == "attn"
+               for l in range(cfg.n_layers))
+
+
+def first_layer(cfg, pred) -> int | None:
+    """The first layer index ``l`` with ``pred(l % scan_period)``."""
+    return next((l for l in range(cfg.n_layers)
+                 if pred(l % cfg.scan_period)), None)
+
+
+def no_drop_config(cfg):
+    """``cfg`` at capacity factor E/K: each expert has a slot for every
+    token of a row, so no (token, k) slot drops (a decode step's never
+    do; a prefill's at the default capacity may)."""
+    return cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def routed_diffs(free, same, flips: list) -> dict:
+    """Two paths' logits, each pair given as (under test, other path):
+    ``free`` with each run's own routes, ``same`` with one run replaying
+    the other's (``RouteLog``), ``flips`` the router choices that differ
+    between the free runs."""
+    return {"max_abs": float((free[0] - free[1]).abs().max()),
+            "max_abs_same_routes": float((same[0] - same[1]).abs().max()),
+            "route_flips_by_layer": flips}
+
+
+def hold_routed(what: str, r: dict, free, same, truth=None) -> None:
+    """``routed_diffs``' record ``r`` of ``free`` and ``same``: without
+    ``truth``, ``hold_logits``.  With the float32 computation ``truth``,
+    each pair that is the same computation but for rounding (``same``,
+    and ``free`` where no route flipped) is held by ``hold_near_fp32``:
+    within LOGIT_ATOL, or no farther from float32 than the other path
+    (its record added to ``r``)."""
+    flips = r["route_flips_by_layer"]
+    if truth is None:
+        hold_logits(r["max_abs"], r["max_abs_same_routes"], flips, what)
+        return
+    r["same_routes"] = hold_near_fp32(f"{what} with the same routes",
+                                      *same, truth)
+    if not sum(flips):
+        r["free_running"] = hold_near_fp32(what, *free, truth)
+
+
+def log_anchored(tag: str, name: str, r: dict) -> None:
+    for key, how in (("same_routes", "with the same routes"),
+                     ("free_running", "free-running")):
+        if key in r:
+            a = r[key]
+            log(f"{tag}: {name} {how}: held by {a['held_by']}; to the "
+                f"float32 computation max {a['max_abs_to_fp32']:.6f} / mean "
+                f"{a['mean_abs_to_fp32']:.6f}, the other path's max "
+                f"{a['plain_max_abs_to_fp32']:.6f} / mean "
+                f"{a['plain_mean_abs_to_fp32']:.6f}")
+
+
+def routed_phase(arch: str, tag: str, seed: int, smi: str, cfg=None,
+                 cut: str = "", anchor: bool = False,
+                 expect: dict | None = None) -> dict:
+    """Phases 9 and 10a: an MoE model (``arch``, at ``cfg`` where its depth
+    is cut) on phase 5's path.  The counts come from the layer pattern:
+    one attention launch a prefill per attention layer, one routed call a
+    pass per MoE layer.  The dropped-slot share of the prefill by layer
+    and by quarter of the positions, none dropped at decode; warm
+    medians, the profiled prefill, serving run and decode; flash-vs-naive
+    and decode-vs-prefill logits held with the routes replayed
+    (``hold_routed``; with ``anchor`` by the float32 computation where
+    bf16 noise exceeds LOGIT_ATOL); the first MoE layer and the first SSD
+    layer (if any) in float32 on the card against the CPU.  ``expect``
+    holds the record's ``params`` and ``weight_bytes`` to exact counts."""
+    from repro_torch import configs as C
     from repro_torch.launch import serve as S
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
-    cfg, params, res = family_params(MOE_ARCH, seed, "moe")
-    dev, n, P = DEVICE, cfg.n_layers, SERVE_P
+    cfg, params, res = family_params(arch, seed, tag, cfg, cut)
+    for key, want in (expect or {}).items():
+        check(res[key] == want, f"{tag}: {key} {res[key]}, not {want}")
+    dev, n, P = DEVICE, routed_layers(cfg), SERVE_P
+    n_attn = attention_layers(cfg)
+    res.update({"routed_layers": n, "attention_layers": n_attn})
     expert_bytes = sum(t.numel() * t.element_size() for lp in params["layers"]
+                       if "moe" in lp
                        for k, t in lp["moe"].items() if k in L.EXPERT_KEYS)
     tokens = S.make_tokens(cfg, SERVE_B, P, seed=seed, device=dev)
     torch.cuda.reset_peak_memory_stats()
     with RouteLog() as timed:
-        out, launches, slot_launches = serve_family(cfg, params, tokens, n,
-                                                    "moe")
+        out, launches, slot_launches = serve_family(cfg, params, tokens,
+                                                    n_attn, tag)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     prefill_keep = [k for _, k in timed.calls[:n]]
     decode_keep = [k for _, k in timed.calls[n:]]
     check(len(decode_keep) == n * (SERVE_G - 1),
-          f"moe: {len(timed.calls)} routed layers, not {n} x {SERVE_G}")
+          f"{tag}: {len(timed.calls)} routed layers, not {n} x {SERVE_G}")
     dropped = [int((~k).sum()) for k in prefill_keep]
     slots = prefill_keep[0].numel()
     # where in the prompt the drops fall: the share of each quarter of the
@@ -3182,9 +3323,10 @@ def moe_phase(seed: int, smi: str) -> dict:
         (~k).reshape(SERVE_B, 4, P // 4, -1).float().mean((0, 2, 3))
         for k in prefill_keep]).mean(0).tolist()
     decode_dropped = sum(int((~k).sum()) for k in decode_keep)
-    check(decode_dropped == 0, f"moe: decode dropped {decode_dropped} slots")
+    check(decode_dropped == 0, f"{tag}: decode dropped {decode_dropped} "
+          "slots")
     res.update(serve_numbers(out))
-    res.update(warm_serve(cfg, params, tokens, res, "moe", smi))
+    res.update(warm_serve(cfg, params, tokens, res, tag, smi))
     res.update({"attention_launches": launches,
                 "fid_slots_launches": slot_launches,
                 "peak_memory_gb": peak_gb,
@@ -3197,7 +3339,7 @@ def moe_phase(seed: int, smi: str) -> dict:
                 "all_experts_read_ms": expert_bytes / HBM_BYTES_PER_S * 1e3,
                 "weights_read_ms": res["weight_bytes"] / HBM_BYTES_PER_S
                 * 1e3})
-    log(f"moe: prefill {SERVE_B} x {P} tokens {res['prefill_ms']:.3f} ms "
+    log(f"{tag}: prefill {SERVE_B} x {P} tokens {res['prefill_ms']:.3f} ms "
         f"({res['prompt_tokens_per_s']:.1f} prompt tokens/s), decode "
         f"{res['decode_ms_per_step']:.3f} ms per step over "
         f"{res['decode_steps']} steps ({res['decode_tokens_per_s']:.1f} "
@@ -3210,38 +3352,44 @@ def moe_phase(seed: int, smi: str) -> dict:
         f" %; by quarter of the prompt's positions "
         f"{[round(100 * q, 4) for q in by_quarter]} %), decode none; peak "
         f"memory {peak_gb:.3f} GB [{smi}]")
-    res.update(profiled_serve(cfg, params, tokens, n, "moe"))
-    log_profiled("moe", res)
+    if n != cfg.n_layers:
+        log(f"{tag}: {n} routed layers a pass and {n_attn} attention "
+            f"layer(s) of {cfg.n_layers}; the prefill's dropped share by "
+            f"layer {[round(100 * d / slots, 4) for d in dropped]} %")
+    res.update(profiled_serve(cfg, params, tokens, n_attn, tag))
+    log_profiled(tag, res)
 
     logits = out["prefill_logits"]
     with torch.inference_mode():
         # flash vs naive attention, the same prompts and capacity
         flash_e = timed.experts()[:n]
+        truth = fp32_prefill(params, cfg, tokens, {}) if anchor else None
         with RouteLog() as naive_routes:
             naive, _ = T.prefill(params, cfg, tokens, max_seq=P, impl="naive")
         flips = route_flips(flash_e, naive_routes.experts(), cfg.n_experts)
-        fvn = float((logits - naive).abs().max())
-        del naive
+        del naive_routes
         with RouteLog(replay=flash_e):
-            naive, _ = T.prefill(params, cfg, tokens, max_seq=P, impl="naive")
-        fvn_replayed = float((logits - naive).abs().max())
-        del naive, naive_routes
+            naive_r, _ = T.prefill(params, cfg, tokens, max_seq=P,
+                                   impl="naive")
         torch.cuda.empty_cache()
-        res["flash_vs_naive"] = {
-            "max_abs": fvn, "max_abs_same_routes": fvn_replayed,
-            "route_flips_by_layer": flips}
-        log(f"moe: last-position logits, flash vs naive attention: max |diff|"
-            f" {fvn:.6f}; with the flash run's routes replayed "
-            f"{fvn_replayed:.6f} (bound {LOGIT_ATOL}); router choices that "
-            f"differ, by layer: {flips}")
-        hold_logits(fvn, fvn_replayed, flips, "moe: flash vs naive prefill")
+        pairs = (logits, naive), (logits, naive_r)
+        fvn = res["flash_vs_naive"] = routed_diffs(*pairs, flips)
+        log(f"{tag}: last-position logits, flash vs naive attention: max "
+            f"|diff| {fvn['max_abs']:.6f}; with the flash run's routes "
+            f"replayed {fvn['max_abs_same_routes']:.6f} (bound {LOGIT_ATOL});"
+            f" router choices that differ, by layer: {flips}")
+        hold_routed(f"{tag}: flash vs naive prefill", fvn, *pairs, truth)
+        log_anchored(tag, "flash vs naive", fvn)
+        del naive, naive_r, truth, pairs
 
         # decode at P against a P + 1 token prefill, with capacity for
         # every slot (decode never drops; a prefill at the default does)
-        nd = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
-        check(L.moe_capacity(nd, P + 1) == P + 1, "moe: no-drop capacity")
+        nd = no_drop_config(cfg)
+        check(L.moe_capacity(nd, P + 1) == P + 1, f"{tag}: no-drop capacity")
         ext = S.make_tokens(cfg, SERVE_B, P + 1, seed=seed + 1, device=dev)
         pos = torch.full((SERVE_B,), P, dtype=torch.int32, device=dev)
+        truth = fp32_prefill(params, nd, ext, {}) if anchor else None
+        torch.cuda.empty_cache()
         with RouteLog() as full_routes:
             full, _ = T.prefill(params, nd, ext, impl="flash")
         torch.cuda.empty_cache()
@@ -3253,61 +3401,91 @@ def moe_phase(seed: int, smi: str) -> dict:
         full_e = full_routes.experts()
         check(all(bool(k.all())
                   for _, k in full_routes.calls + dec_routes.calls),
-              "moe: a slot dropped at the no-drop capacity")
+              f"{tag}: a slot dropped at the no-drop capacity")
         replay = [e[:, :P] for e in full_e] + [e[:, P:] for e in full_e]
         flips = route_flips(replay, dec_routes.experts(), cfg.n_experts)
         flips = [a + b for a, b in zip(flips[:n], flips[n:])]
-        dvp = float((step[:, 0] - full).abs().max())
         del full_routes, dec_routes
         with RouteLog(replay=replay):
             _, cache_r = T.prefill(params, nd, ext[:, :P], max_seq=P + 1,
                                    impl="flash")
             step_r, _ = T.decode_step(params, nd, ext[:, P:], cache_r, pos)
-        dvp_replayed = float((step_r[:, 0] - full).abs().max())
-        del cache_r, step_r
-        torch.cuda.empty_cache()
-        res["decode_vs_prefill"] = {
-            "max_abs": dvp, "max_abs_same_routes": dvp_replayed,
-            "route_flips_by_layer": flips,
+        pairs = (step[:, 0], full), (step_r[:, 0], full)
+        dvp = res["decode_vs_prefill"] = {
+            **routed_diffs(*pairs, flips),
             "capacity_factor": nd.capacity_factor}
-        log(f"moe: decode at position {P} vs a {P + 1}-token prefill (capacity"
-            f" factor {nd.capacity_factor}: nothing drops): max |diff| "
-            f"{dvp:.6f}; with the prefill's routes replayed "
-            f"{dvp_replayed:.6f} (bound {LOGIT_ATOL}); router choices that "
-            f"differ, by layer: {flips}")
-        hold_logits(dvp, dvp_replayed, flips, "moe: decode vs prefill")
+        log(f"{tag}: decode at position {P} vs a {P + 1}-token prefill "
+            f"(capacity factor {nd.capacity_factor}: nothing drops): max "
+            f"|diff| {dvp['max_abs']:.6f}; with the prefill's routes "
+            f"replayed {dvp['max_abs_same_routes']:.6f} (bound "
+            f"{LOGIT_ATOL}); router choices that differ, by layer: {flips}")
+        hold_routed(f"{tag}: decode vs prefill", dvp, *pairs, truth)
+        log_anchored(tag, "decode vs prefill", dvp)
+        del cache_r, step_r, truth, pairs
+        torch.cuda.empty_cache()
         res.update(profiled_decode(cfg, params, step, cache, pos))
         del cache, step, full
-    log(f"moe: decode alone (profiled, {DECODE_PROFILE_STEPS} steps): "
+    log(f"{tag}: decode alone (profiled, {DECODE_PROFILE_STEPS} steps): "
         f"{res['decode_profiled_wall_ms_per_step']:.3f} ms wall per step, "
         f"device busy {res['decode_device_busy_ms_per_step']:.3f} ms (idle "
         f"{100 * res['decode_idle_share']:.3f} %); reading every expert "
         f"({expert_bytes / 1e9:.3f} GB) takes at least "
         f"{res['all_experts_read_ms']:.3f} ms, all the weights "
         f"{res['weights_read_ms']:.3f} ms [{smi}]")
-    log(f"moe: a decode step's device ms by kind of kernel: "
+    log(f"{tag}: a decode step's device ms by kind of kernel: "
         f"{res['decode_device_ms_by_class']}; top device operations over "
         f"{DECODE_PROFILE_STEPS} steps (ms, calls): "
         f"{[(k[:60], ms, c) for k, ms, c in res['decode_top_device_ops_ms']]}")
+    depth = C.get_config(arch).n_layers
+    if cfg.n_layers != depth:
+        log(f"{tag}: the idle shares above are of {cfg.n_layers} of {depth} "
+            f"layers ({cut}): a call's fixed host work (the embedding, the "
+            f"unembedding over {cfg.vocab_size} rows, the greedy choice, the "
+            f"launcher's loop) is spread over {cfg.n_layers} layers' device "
+            f"work, not {depth}, so the host's share is larger here than a "
+            f"stage of all {depth} layers would show")
 
-    layer = moe_card_vs_cpu(cfg, params["layers"][0]["moe"], LAYER_CHECK_B,
+    l = first_layer(cfg, cfg.layer_is_moe)
+    layer = moe_card_vs_cpu(cfg, params["layers"][l]["moe"], LAYER_CHECK_B,
                             LAYER_CHECK_S, seed)
     res["layer_card_vs_cpu"] = layer
-    log(f"moe: layer 0 in float32, card vs CPU, {LAYER_CHECK_B} x "
+    log(f"{tag}: layer {l} in float32, card vs CPU, {LAYER_CHECK_B} x "
         f"{LAYER_CHECK_S} tokens at capacity {layer['capacity']} (dropped "
         f"{100 * layer['dropped_share']:.3f} %): top_e, pos, keep equal "
         f"{layer['top_e_equal']}, {layer['pos_equal']}, "
         f"{layer['keep_equal']}; output max |diff| {layer['max_abs_err']:.3g}"
         f" ({layer['beyond_tol']} beyond rtol=atol={MOE_LAYER_TOL}); aux "
         f"|diff| {layer['aux_abs_err']:.3g}")
-    check(layer["ok"], f"moe: layer 0 on the card differs from the CPU: "
+    check(layer["ok"], f"{tag}: layer {l} on the card differs from the CPU: "
           f"{layer}")
+    l = first_layer(cfg, lambda i: cfg.layer_kind(i) == "ssm")
+    if l is not None:
+        layer = ssd_card_vs_cpu(cfg, params["layers"][l]["ssm"],
+                                LAYER_CHECK_B, LAYER_CHECK_S, seed)
+        res["ssd_layer_card_vs_cpu"] = layer
+        log(f"{tag}: SSD layer {l} in float32, card vs CPU, {LAYER_CHECK_B} "
+            f"x {LAYER_CHECK_S} tokens then 2 decode steps: max |diff| "
+            f"{layer['max_abs_err']} ({layer['beyond_tol']} beyond "
+            f"rtol=atol={SSD_LAYER_TOL})")
+        check(layer["ok"], f"{tag}: SSD layer {l} on the card differs from "
+              f"the CPU: {layer}")
     res["phase_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    log(f"moe: peak device memory over the whole phase, checks included: "
+    log(f"{tag}: peak device memory over the whole phase, checks included: "
         f"{res['phase_peak_memory_gb']:.3f} GB")
     del params, out, logits, timed
     torch.cuda.empty_cache()
     return res
+
+
+def moe_phase(seed: int, smi: str) -> dict:
+    return routed_phase(MOE_ARCH, "moe", seed, smi)
+
+
+def hybrid_phase(seed: int, smi: str) -> dict:
+    return routed_phase(HYBRID_ARCH, "hybrid", seed, smi, hybrid_config(),
+                        HYBRID_CUT, anchor=True,
+                        expect={"params": HYBRID_PARAMS,
+                                "weight_bytes": HYBRID_WEIGHT_BYTES})
 
 
 def ssm_phase(seed: int, smi: str) -> dict:
@@ -3416,7 +3594,7 @@ def encdec_card_vs_cpu(cfg, params: dict, batch: int, frames: int,
 def fp32_prefill(params, cfg, tokens, extras):
     """The last-position logits of the same model and inputs computed in
     float32 (each weight cast at use, plain attention): the anchor of the
-    logits checks of phases 11 and 12."""
+    logits checks of phases 10a, 11 and 12."""
     from repro_torch.models import transformer as T
     T.COMPUTE_DTYPE = torch.float32
     try:
@@ -3940,9 +4118,10 @@ def measured_rates(smi: str) -> dict:
 
 def roofline_phase(smi: str, measured: dict) -> dict:
     """Phase 14: (a) the dry run on the fake 16x16 mesh, (b) the one-card
-    bound of each measured step of phases 5, 8-12, 12a and 12b (the
-    serving phases' medians of their warm calls, ``warm_serve``; phases
-    8-8c's median steps), (c) the card's rates.  ``measured`` maps a phase's
+    bound of each measured step of phases 5, 8-12, 10a, 12a and 12b (the
+    serving phases' medians of their warm calls, ``warm_serve``, at the
+    depth each was served; phases 8-8c's median steps), (c) the card's
+    rates.  ``measured`` maps a phase's
     tag to its record."""
     from repro_torch import configs as C
     from repro_torch.kernels import flash_attention as fa, stream_ops
@@ -3966,7 +4145,7 @@ def roofline_phase(smi: str, measured: dict) -> dict:
     for tag in SERVE_TAGS:
         res = measured[tag]
         arch, B, prompt = res["arch"], res["batch"], res["prompt_len"]
-        cfg = C.get_config(arch)
+        cfg = phase_config(res)
         for kind, seq, key in (
                 ("prefill", prompt, "prefill_ms"),
                 # decode reads the whole cache: prompt + generated slots
@@ -4075,6 +4254,7 @@ def main() -> int:
            for tag, arch, kw in TRAIN_FAMILIES}
     mo = timed("moe", moe_phase, args.seed, smi)
     sm = timed("ssm", ssm_phase, args.seed, smi)
+    hy = timed("hybrid", hybrid_phase, args.seed, smi)
     vlm_layers = C.get_config(VLM_ARCH).n_layers
     audio = C.get_config(AUDIO_ARCH)
     vl = timed("vlm", family_phase, VLM_ARCH, SERVE_B, SERVE_P, vlm_layers,
@@ -4090,8 +4270,8 @@ def main() -> int:
                C.get_config(QWEN_ARCH).n_layers, "qwen", args.seed, smi)
     ms = timed("mesh", mesh_phase, args.seed, smi, sv, tr)
     rl = timed("roofline", roofline_phase, smi,
-               {"serve": sv, "moe": mo, "ssm": sm, "vlm": vl, "audio": au,
-                "gemma": gm, "qwen": qw, "train": tr, **trf})
+               {"serve": sv, "moe": mo, "ssm": sm, "hybrid": hy, "vlm": vl,
+                "audio": au, "gemma": gm, "qwen": qw, "train": tr, **trf})
     log(f"time: phases {json.dumps(phase_s)}, "
         f"{sum(phase_s.values()):.1f} s in all")
     at = k["sizes"][BATCH]
@@ -4114,6 +4294,7 @@ def main() -> int:
         "serve_launches": sv["fid_slots_launches"],
         "moe_launches": mo["fid_slots_launches"],
         "ssm_launches": sm["fid_slots_launches"],
+        "hybrid_launches": hy["fid_slots_launches"],
         "vlm_launches": vl["fid_slots_launches"],
         "audio_launches": au["fid_slots_launches"],
         "gemma_launches": gm["fid_slots_launches"],
@@ -4158,6 +4339,7 @@ def main() -> int:
                                  for tag, r in trf.items()},
                               "moe": mo["attention_launches"][kernel],
                               "ssm": sm["attention_launches"][kernel],
+                              "hybrid": hy["attention_launches"][kernel],
                               "vlm": vl["attention_launches"][kernel],
                               "audio": au["attention_launches"][kernel],
                               "gemma": gm["attention_launches"][kernel],
@@ -4204,6 +4386,7 @@ def main() -> int:
     print(json.dumps({"train": tr}), flush=True)
     print(json.dumps({"moe": mo}), flush=True)
     print(json.dumps({"ssm": sm}), flush=True)
+    print(json.dumps({"hybrid": hy}), flush=True)
     print(json.dumps({"vlm": vl}), flush=True)
     print(json.dumps({"audio": au}), flush=True)
     print(json.dumps({"gemma": gm}), flush=True)

@@ -23,8 +23,9 @@ training step on the card must agree with the same step on the CPU
 phases 8a-8c's helper must pass its checks at smoke size with no kernel
 launched (and, on the CPU, the Trainer must refuse an encoder-decoder,
 to which it feeds no frames), and one MoE layer and one SSD layer in
-float32 must agree between card and CPU (phases 9 and 10: routing
-equal, outputs within 1e-5 and 1e-4), and so
+float32 must agree between card and CPU (phases 9, 10 and 10a, each at
+its family's width, jamba-v0.1-52b's too: routing equal, outputs within
+1e-5 and 1e-4), and so
 must one encoder layer and one decoder layer of whisper-small (phase 12:
 within 1e-4).  On a one-rank NCCL mesh (phase 13) the sharded path runs
 the unsharded operations: a flash prefill and decode steps within 1e-3,
@@ -461,28 +462,34 @@ def load_smoke():
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
-                                  "qwen3-moe-30b-a3b"])
+                                  "qwen3-moe-30b-a3b", "jamba-v0.1-52b"])
 def test_moe_layer_on_the_card_like_on_the_cpu(card, arch):
-    """chip_smoke.py's phase 9 layer check at the full config's width:
-    one MoE layer in float32, the same weights and input on both
-    devices; top_e, pos and keep equal, the output within 1e-5."""
+    """chip_smoke.py's phase 9 and 10a layer check at the full config's
+    width: the first MoE layer (jamba-v0.1-52b's is layer 1) in float32,
+    the same weights and input on both devices; top_e, pos and keep
+    equal, the output within 1e-5."""
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as M
+    smoke = load_smoke()
+    cfg = C.get_config(arch)
+    l = smoke.first_layer(cfg, cfg.layer_is_moe)
+    cfg = cfg.replace(n_layers=l + 1)
+    params = M.init_params(cfg, seed=0, device="cpu")
+    out = smoke.moe_card_vs_cpu(cfg, params["layers"][l]["moe"], 2, 64, 0)
+    assert out["ok"], out
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-v0.1-52b"])
+def test_ssd_layer_on_the_card_like_on_the_cpu(card, arch):
+    """chip_smoke.py's phase 10 and 10a layer check at the full config's
+    width (mamba2-780m's 48 heads, jamba-v0.1-52b's 128): one SSD layer
+    in float32 over 300 tokens (two chunks, the second cut short), its
+    cache and two decode steps within 1e-4."""
     from repro_torch import configs as C
     from repro_torch.models import transformer as M
     smoke = load_smoke()
     cfg = C.get_config(arch).replace(n_layers=1)
-    params = M.init_params(cfg, seed=0, device="cpu")
-    out = smoke.moe_card_vs_cpu(cfg, params["layers"][0]["moe"], 2, 64, 0)
-    assert out["ok"], out
-
-
-def test_ssd_layer_on_the_card_like_on_the_cpu(card):
-    """chip_smoke.py's phase 10 layer check at mamba2-780m's width: one
-    SSD layer in float32 over 300 tokens (two chunks, the second cut
-    short), its cache and two decode steps within 1e-4."""
-    from repro_torch import configs as C
-    from repro_torch.models import transformer as M
-    smoke = load_smoke()
-    cfg = C.get_config("mamba2-780m").replace(n_layers=1)
+    assert cfg.layer_kind(0) == "ssm"
     params = M.init_params(cfg, seed=0, device="cpu")
     out = smoke.ssd_card_vs_cpu(cfg, params["layers"][0]["ssm"], 2, 300, 0)
     assert out["ok"], out
