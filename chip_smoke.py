@@ -42,7 +42,10 @@ Phases, in order; any failed check exits nonzero and prints no result:
             in turns with ``scaled_dot_product_attention`` on the same
             tensors as a yardstick (the port never calls it; with
             gemma2's softcap, ``flex_attention`` compiled with the cap
-            as its score_mod, and SDPA without the cap beside it);
+            as its score_mod, and SDPA without the cap beside it); the
+            CUDA-core kernel also checked and timed in float32 at phase
+            5's shape, against SDPA in float32 and its bound at the
+            card's float32 CUDA-core rate;
 4. main     the sharded changelog pipeline end to end: 4 MDT journals x
             262,144 records routed by ``LcapCluster(device="cuda")`` to
             4 shards, two consumer groups and an ephemeral reader
@@ -92,6 +95,34 @@ Phases, in order; any failed check exits nonzero and prints no result:
             ``top`` frame; one kernel launch per routing chunk; and a
             small run whose consumers must end in the same state routing
             on the card and on the CPU;
+7a. elastic the paper's elastic operations with routing on the card, on
+            phase 4's generator (cluster of 64 slots, batches of 1024),
+            each part's ``fid_slots`` launches counted from 0 and equal to
+            its routers' chunks, call site by call site
+            (``RoutingSites``): (a) ``benchmarks/bench_elastic.py``'s
+            churn storm at 4 journals x 65,536 records a window: an
+            ``LcapClusterService`` of 4 shard ports, one durable member
+            over ``connect(addresses)`` never restarted, a steady window
+            streamed 256 records a journal at a time, then a churn
+            window under seeded ``migrate_slots``, one
+            ``service.add_shard()`` and a split through the service;
+            both windows exactly once, journals trimmed, an epoch bump
+            seen per migration and per shard added, records parked;
+            records/s of each window and their ratio beside the
+            reference's gate of 0.5 (not held); (b) phase 6b's four shard
+            daemons with a wire ``mirror`` group, one daemon SIGKILLed
+            after half of 4 x 65,536 records are routed: nothing lost,
+            duplicates counted, the stream's ``lost`` names it; (c) the
+            elastic scenario pumped here (``run_elastic``: migrations
+            under backpressure, a split, a migration cancelled by its
+            source's death, a replay bootstrap from the history tier) at
+            4 x 65,536 records, routing on the card and on the CPU, equal
+            byte for byte in every delivery, stats, epoch, owners and
+            journal acks; (d) two filesystems of 2 journals x 65,536
+            under ``Federation``, a durable member detached and resumed,
+            one member migrating (exactly once), the other killing a
+            shard (at least once), the merged cursor at every journal's
+            last index;
 8. train    starcoder2-3b at full width and depth (30 layers, 4.31 B
             parameters) trained on the card by the port's ``Trainer``
             with fp32 master weights and AdamW (69 GB of state), 2 hosts'
@@ -231,8 +262,9 @@ Phases, in order; any failed check exits nonzero and prints no result:
             the data sheet.
 
 Then a JSON line of serve numbers, one of wire numbers, one of activity
-numbers, one of training numbers, one of MoE serving numbers, one of SSD
-serving numbers, one of hybrid serving numbers, one of VLM serving
+numbers, one of elastic numbers, one of training numbers, one of MoE
+serving numbers, one of SSD serving numbers, one of hybrid serving
+numbers, one of VLM serving
 numbers, one of audio serving numbers, one of gemma2 and one of qwen2.5
 serving numbers, one of mesh numbers, one of roofline numbers, one of phases 8a-8c's training numbers
 (``train_families``), one of kernels,
@@ -244,6 +276,7 @@ JAX, of the reference package or of msgpack.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import statistics
@@ -295,6 +328,15 @@ DAEMON_START_S = 120.0
 ACTIVITY_RECORDS_PER_MDT = 65_536
 ACTIVITY_DEADLINE_S = 400.0
 ACTIVITY_WINDOW_NS = 1_000_000
+#: phase 7a: records per MDT journal in each part (a window of (a)),
+#: records appended to a journal at a time by (a)'s feeder, the parking
+#: bound of (c), its time limit, and the reference's own churn gate
+#: (``benchmarks/bench_elastic.py``), printed beside the ratio, not held
+ELASTIC_RECORDS_PER_MDT = 65_536
+ELASTIC_FEED_CHUNK = 256
+ELASTIC_PARK_CAP = 16_384
+ELASTIC_DEADLINE_S = 300.0
+CHURN_GATE = 0.5
 EDGE_FIDS = [(0, 0, 0), (1, 0, 0), ((1 << 64) - 1, (1 << 32) - 1,
                                     (1 << 32) - 1), (1 << 63, 1, 2)]
 #: operation mix of the main path (percent)
@@ -370,6 +412,9 @@ SERVE_B, SERVE_P, SERVE_G, SERVE_REPLICAS = 4, 2048, 16, 2
 #: the attention kernel's shape on that path (bf16, causal)
 FLASH_MAIN = ((SERVE_B, SERVE_P, SERVE_P, 32, 8, 128), "bfloat16", True, 0,
               0.0)
+#: the same shape in float32: the CUDA-core kernel's own regime (the
+#: wgmma kernel takes bf16 only), checked and timed in phase 3
+FLASH_MAIN_F32 = (FLASH_MAIN[0], "float32", True, 0, 0.0)
 #: calls of the launcher timed after each serving phase's first: the
 #: phase's prefill ms and decode ms a step are their medians (phase 14's
 #: one-card shares read them), the first call's numbers kept beside them
@@ -1106,6 +1151,17 @@ class WireMeter:
 
 def trimmed(logs) -> bool:
     return all(log.first_index == log.last_index + 1 for log in logs.values())
+
+
+def idle(cluster) -> bool:
+    """An in-process cluster is through its stream: no migration in
+    flight, every journal trimmed and nothing in a live shard's ingest
+    buffer.  A trimmed journal alone is not enough: the collective ack
+    can pass records a migration hands its target (or a failover its
+    survivors) before the shard dispatches them."""
+    return cluster._migration is None and trimmed(cluster.journals) and all(
+        shard.proxy.buffered == 0 for i, shard in enumerate(cluster.shards)
+        if cluster.alive[i])
 
 
 def run_wire_service(journals: dict, device: str, n_slots: int = N_SLOTS,
@@ -1939,6 +1995,998 @@ def activity_phase(seed: int, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------ phase 7a: elastic
+def journal_records(R, arrays, lo: int, hi: int) -> list:
+    """Records ``lo + 1 .. hi`` of a journal from ``make_journal_arrays``
+    as ``ChangelogRecord``s of records module ``R`` (the port's; the
+    reference's in the CPU tests), for ``Llog.log_batch``, which gives
+    them the same indices and ``cr_prev`` chains when they are appended
+    in order to a journal holding records 1 .. lo."""
+    buf, off, ln, _types = arrays
+    return [R.unpack(buf[o:o + n])
+            for o, n in zip(off[lo:hi].tolist(), ln[lo:hi].tolist())]
+
+
+def port_modules():
+    """The port's modules as ``run_elastic`` and ``run_federation``
+    take a package (the CPU tests pass the reference's the same way)."""
+    from types import SimpleNamespace
+    from repro_torch.core import cluster, federation, llog, session
+    from repro_torch.core import records as R
+    return SimpleNamespace(R=R, cluster=cluster, llog=llog, session=session,
+                           federation=federation, kw={"device": "cuda"})
+
+
+class RoutingSites:
+    """Where the routing chunks of ``clusters`` are hashed, by call site:
+    ``round`` (a routing round with no migration in flight: its reads
+    hashed together), ``migration`` (the round while a migration is in
+    flight: each read hashed as it is read), ``redeliver`` (a forced
+    migration's journal re-read), ``reoffer`` (a cancelled migration's
+    parked records) and ``replay`` (``ClusterReplayReader.read``, the
+    shard filter of a replay bootstrap).  Counts each cluster's router
+    chunks (on either device) and the ``stream_ops.launches`` made in
+    them (the card's).  Wraps the call sites for the life of the
+    context, without changing what they do."""
+
+    SITES = ("round", "migration", "redeliver", "reoffer", "replay", "other")
+
+    def __init__(self, *clusters):
+        self.clusters = clusters
+        self.chunks = [dict.fromkeys(self.SITES, 0) for _ in clusters]
+        self.launches = [dict.fromkeys(self.SITES, 0) for _ in clusters]
+        self._local = threading.local()
+
+    def _in(self, site: str, fn, *args):
+        stack = self._local.__dict__.setdefault("stack", [])
+        stack.append(site)
+        try:
+            return fn(*args)
+        finally:
+            stack.pop()
+
+    def __enter__(self) -> "RoutingSites":
+        from repro_torch.core import cluster as CL
+        from repro_torch.kernels import stream_ops
+        for k, c in enumerate(self.clusters):
+            def hashed(n, n_slots, dst, k=k, hash_=c._router._hash):
+                before = stream_ops.launches
+                hash_(n, n_slots, dst)
+                stack = getattr(self._local, "stack", None)
+                site = stack[-1] if stack else "other"
+                self.chunks[k][site] += 1
+                self.launches[k][site] += stream_ops.launches - before
+
+            def route(c=c, route_=c._route):
+                return self._in("round" if c._migration is None
+                                else "migration", route_)
+            c._router._hash = hashed
+            c._route = route
+            for name, site in (("_redeliver_locked", "redeliver"),
+                               ("_reoffer_parked_locked", "reoffer")):
+                setattr(c, name, lambda *a, site=site, fn=getattr(c, name):
+                        self._in(site, fn, *a))
+        self._read = CL.ClusterReplayReader.read
+        ours = {id(c) for c in self.clusters}
+
+        def read(reader, start, max_records=1024, read_=self._read):
+            if id(reader.cluster) not in ours:
+                return read_(reader, start, max_records)
+            return self._in("replay", read_, reader, start, max_records)
+        CL.ClusterReplayReader.read = read
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.core import cluster as CL
+        CL.ClusterReplayReader.read = self._read
+        for c in self.clusters:
+            for name in ("_route", "_redeliver_locked",
+                         "_reoffer_parked_locked"):
+                c.__dict__.pop(name, None)
+            c._router.__dict__.pop("_hash", None)
+
+    def total(self, what: str = "chunks") -> dict:
+        """Chunks (or launches) by site, summed over the clusters."""
+        rows = getattr(self, what)
+        return {s: sum(r[s] for r in rows) for s in self.SITES}
+
+
+def delivery_counts(deliveries, sizes: dict) -> dict:
+    """key -> int64 array (index 0 unused): how often each journal index
+    was delivered, from ``(key, indices)`` pairs; ``sizes`` holds each
+    key's last index."""
+    counts = {key: np.zeros(n + 1, dtype=np.int64)
+              for key, n in sizes.items()}
+    for key, idx in deliveries:
+        np.add.at(counts[key], np.asarray(idx, dtype=np.int64), 1)
+    return counts
+
+
+def check_delivered(label: str, counts: dict, exactly_once: bool,
+                    want: dict = None) -> int:
+    """Every index of every journal delivered at least once (of those
+    ``want`` marks, where given), and exactly once on a graceful path.
+    Returns the duplicates."""
+    dups = 0
+    for key, c in counts.items():
+        got = c[1:]
+        need = np.ones(len(got), dtype=bool) if want is None else want[key]
+        lost = int((need & (got == 0)).sum())
+        check(lost == 0, f"{label}: {lost} records of {key} never delivered")
+        check(bool((got[~need] == 0).all()),
+              f"{label}: records of {key} delivered outside the group's "
+              "types")
+        extra = int(np.maximum(got - 1, 0).sum())
+        check(not (exactly_once and extra),
+              f"{label}: {extra} records of {key} delivered more than once "
+              "on a graceful path")
+        dups += extra
+    return dups
+
+
+def run_elastic(pkg, records: dict, park_cap: int,
+                batch_size: int = BATCH) -> dict:
+    """Phase 7a (c): the elastic operations with no thread, the cluster
+    pumped here round by round as tests/test_torch_cluster.py's
+    ``run_elastic`` does.  ``pkg`` holds a package's ``R``, ``cluster``,
+    ``session`` and ``llog`` modules and the keywords its
+    ``LcapCluster`` takes (``kw``: the port's routing device);
+    ``records`` maps each journal to its records (``journal_records``).
+
+    Journals with a history tier take 1/16 of their records a round,
+    up to 15/16 (the rest comes with the last migration);
+    robinhood (two members) fetches up to n/8 records a member a round,
+    audit (its types, one member) up to n/128, so its backlog holds the
+    shard watermarks, and with them each migration's handoff, back over
+    many rounds, and the parked records reach ``park_cap``
+    (backpressure).  Topology changes, each at the first round at or
+    after its own with no migration in flight: round 1 and round 4, 8
+    slots of shard 0 to shard 1; round 8, ``split_shard()``; round 12,
+    half of shard 2's slots to shard 3, the journals' remaining records
+    appended at once, and shard 2 killed the round after, while that
+    migration parks (so the cancel hands its parked records back).  Once
+    every journal has trimmed, a late group subscribes with
+    ``replay=True`` and bootstraps from the history tier.  Returns the
+    trace (group, member, shard, journal, v2 bytes) and the state the
+    card's run and the CPU's must share."""
+    R, S = pkg.R, pkg.session.Subscription
+    n = len(next(iter(records.values())))
+    feed = -(-n // 16)
+    logs = {pid: pkg.llog.Llog(pid, history=True) for pid in records}
+    cluster = pkg.cluster.LcapCluster(logs, n_shards=N_SHARDS,
+                                      n_slots=N_SLOTS, batch_size=batch_size,
+                                      park_cap=park_cap, **pkg.kw)
+    sites = (RoutingSites(cluster) if hasattr(cluster, "_router")
+             else contextlib.nullcontext())
+    session = pkg.session.connect(cluster)
+    audit = frozenset(getattr(R, name) for name in AUDIT)
+    streams = [("robinhood", k, session.subscribe(S(
+        group="robinhood", auto_commit=False))) for k in range(2)]
+    streams.append(("audit", 0, session.subscribe(S(
+        group="audit", types=audit, flags=R.CLF_JOBID, auto_commit=False))))
+    take = {"robinhood": max(1, n // 8), "audit": max(1, n // 128)}
+    fed = 0
+    trace, facts = [], {"max_parked": 0, "parked_at_kill": 0}
+
+    def append(hi: int) -> None:
+        nonlocal fed
+        for pid, log in logs.items():
+            log.log_batch(records[pid][fed:hi])
+        fed = hi
+
+    def move_half_of_2(c) -> None:
+        half = c.routing.slots_of(2)
+        c.migrate_slots(half[:len(half) // 2], 3)
+        append(n)
+
+    def kill_2(c) -> None:
+        check(c._migration is not None, "the migration off shard 2 "
+              "committed before its source could be killed")
+        facts["parked_at_kill"] = c._parked_count
+        c.kill_shard(2, reason="killed while its slots drain")
+
+    steps = [(1, lambda c: c.migrate_slots(c.routing.slots_of(0)[:8], 1)),
+             (4, lambda c: c.migrate_slots(c.routing.slots_of(0)[:8], 1)),
+             (8, lambda c: c.split_shard()),
+             (12, move_half_of_2), (0, kill_2)]
+
+    def consume(group_streams) -> int:
+        moved = 0
+        for group, k, stream in group_streams:
+            for pid, batch in stream.fetch(take.get(group, n // 8)):
+                trace.append((group, k, shard_of(stream, batch), pid,
+                              batch.to_wire(R.WIRE_V2)))
+                moved += len(batch)
+            stream.commit()
+        return moved
+
+    def settled() -> bool:
+        return idle(cluster)
+
+    with sites:
+        rounds = 0
+        for rounds in range(1, 100_000):
+            rnd = rounds - 1
+            if rnd < 15:
+                append(min(n - feed, fed + feed))
+            if steps and rnd >= steps[0][0] and (
+                    cluster._migration is None or steps[0][1] is kill_2):
+                steps.pop(0)[1](cluster)
+                if steps and steps[0][1] is kill_2:
+                    steps[0] = (rnd + 1, kill_2)
+            moved = cluster.pump()
+            facts["max_parked"] = max(facts["max_parked"],
+                                      cluster._parked_count)
+            moved += consume(streams)
+            if not steps and fed == n and not moved and settled():
+                break
+        check(not steps and settled(), "the elastic run did not settle")
+        # a late group bootstraps from the history tier, shard by shard
+        late = session.subscribe(S(group="late", replay=True,
+                                   auto_commit=False))
+        late_streams = [("late", 0, late)]
+        for _ in range(100_000):
+            moved = cluster.pump() + consume(late_streams)
+            if not moved and not late.replaying and settled():
+                break
+        check(not late.replaying, "the late group's replay did not end")
+    facts.update(rounds=rounds, replayed=late.replayed,
+                 backpressure=facts["max_parked"] >= park_cap)
+    session.close()
+    out = {"trace": trace, "stats": dict(cluster.stats),
+           "routing": (cluster.routing.epoch, cluster.slot_owner),
+           "journal_acked": dict(cluster.journal_acked),
+           "alive": list(cluster.alive), "facts": facts}
+    if hasattr(cluster, "_router"):
+        out["sites"] = {"chunks": sites.total("chunks"),
+                        "launches": sites.total("launches")}
+        out["routing_launches"] = cluster.routing_launches
+        out["routing_reads"] = cluster.routing_reads
+    return out
+
+
+def verify_elastic(run: dict, journals: dict, park_cap: int) -> dict:
+    """Phase 7a (c)'s checks on one run: robinhood got every record and
+    audit every record of its types (at least once: a shard was
+    killed), the late group replayed, every operation of the scenario
+    happened, backpressure engaged, and each elastic call site hashed
+    (port runs)."""
+    from repro_torch.core import records as T
+    sizes = {pid: len(j[1]) for pid, j in journals.items()}
+    audit = np.array([getattr(T, name) for name in AUDIT])
+    by_group = {g: [] for g in ("robinhood", "audit", "late")}
+    for group, _k, _shard, pid, wire in run["trace"]:
+        by_group[group].append(
+            (pid, T.RecordBatch.from_wire(wire).indices_np()))
+    dups = {g: check_delivered(f"elastic (c) {g}",
+                               delivery_counts(by_group[g], sizes),
+                               exactly_once=False, want=want)
+            for g, want in (("robinhood", None),
+                            ("audit", {pid: np.isin(j[3], audit)
+                                       for pid, j in journals.items()}))}
+    st, facts = run["stats"], run["facts"]
+    check(st["migrations_completed"] == 3 and
+          st["migrations_cancelled"] == 1 and st["shards_added"] == 1 and
+          st["shards_failed"] == 1, f"elastic (c): stats {st}")
+    check(st["failover_redelivered"] > 0, "elastic (c): the kill "
+          "redelivered nothing")
+    check(facts["backpressure"], f"elastic (c): at most "
+          f"{facts['max_parked']} records parked, under {park_cap}: no "
+          "backpressure")
+    check(facts["parked_at_kill"] > 0, "elastic (c): nothing parked when "
+          "the migration's source was killed")
+    check(facts["replayed"] > 0 and by_group["late"],
+          "elastic (c): the late group replayed nothing")
+    if "sites" in run:
+        chunks = run["sites"]["chunks"]
+        for site in ("migration", "redeliver", "reoffer", "replay"):
+            check(chunks[site] > 0, f"elastic (c): no routing chunk hashed "
+                  f"by the {site} call site")
+    return {"duplicates": dups, "late_records": sum(
+        len(i) for _p, i in by_group["late"])}
+
+
+def run_federation(pkg, records: dict) -> dict:
+    """Phase 7a (d): two filesystems, ``fs0`` (journals mdt0, mdt1) and
+    ``fs1`` (mdt2, mdt3), each an ``LcapCluster`` of 3 shards routing on
+    ``pkg.kw``'s device, joined by ``Federation``.  Both clusters' journals
+    are written before the first pump; one durable member of group
+    ``fed`` fetches up to 1/16 of the records a round until it has half
+    of them, commits, detaches and ``resume``s; then ``fs0`` migrates
+    half its slots (graceful) and ``fs1`` kills the shard with the most
+    records routed to it and not yet acknowledged (forced) while the
+    resumed member consumes the rest.  Returns the deliveries
+    ((origin, journal), indices), the two streams' cursors merged, each
+    journal's last index, and each member's stats and routing."""
+    S = pkg.session.Subscription
+    members = {"fs0": ("mdt0", "mdt1"), "fs1": ("mdt2", "mdt3")}
+    logs = {o: {pid: pkg.llog.Llog(pid) for pid in pids}
+            for o, pids in members.items()}
+    clusters = {o: pkg.cluster.LcapCluster(logs[o], n_shards=3,
+                                           n_slots=N_SLOTS,
+                                           batch_size=BATCH, **pkg.kw)
+                for o in members}
+    for o, pids in members.items():
+        for pid in pids:
+            logs[o][pid].log_batch(records[pid])
+    total = sum(len(records[pid]) for pids in members.values()
+                for pid in pids)
+    take = max(1, total // 16)
+    fed = pkg.federation.Federation(clusters)
+    stream = fed.subscribe(S(group="fed", name="auditor", auto_commit=False))
+    deliveries, cursor = [], pkg.federation.GlobalCursor()
+
+    def consume() -> int:
+        got = 0
+        for origin, pid, batch in stream.fetch(take):
+            check(batch.origin == origin and pid in members[origin],
+                  f"federation: a {pid} batch stamped {batch.origin!r} "
+                  f"came from {origin!r}")
+            deliveries.append(((origin, pid), batch.indices_np()))
+            got += len(batch)
+        stream.commit()
+        return got
+
+    def settled() -> bool:
+        return all(idle(c) for c in clusters.values())
+
+    sites = (RoutingSites(*clusters.values())
+             if hasattr(clusters["fs0"], "_router")
+             else contextlib.nullcontext())
+    with sites:
+        got = 0
+        for _ in range(100_000):
+            if got >= total // 2:
+                break
+            fed.pump()
+            got += consume()
+        check(got >= total // 2, "federation: half the records never came")
+        cursor.merge(stream.cursor)
+        stream.detach()
+        stream = fed.resume("fed", "auditor", auto_commit=False)
+        check(stream.resumed, "federation: the durable member did not resume")
+        victim = []
+
+        def kill_busiest() -> None:
+            lag = clusters["fs1"].autoscale_signals()
+            victim.append(max(sorted(lag), key=lambda i: lag[i][
+                "dispatch_lag"]))
+            clusters["fs1"].kill_shard(int(victim[0]), reason="killed")
+
+        events = [lambda: clusters["fs0"].migrate_slots(range(N_SLOTS // 2),
+                                                        1), kill_busiest]
+        for _ in range(100_000):
+            if events:
+                events.pop(0)()
+            moved = fed.pump() + consume()
+            if not events and not moved and settled():
+                break
+        check(settled(), "federation: the members did not settle")
+        cursor.merge(stream.cursor)
+    out = {"deliveries": deliveries, "cursor": cursor.snapshot(),
+           "last": {o: {pid: log.last_index for pid, log in per.items()}
+                    for o, per in logs.items()},
+           "stats": {o: dict(c.stats) for o, c in clusters.items()},
+           "routing": {o: (c.routing.epoch, c.slot_owner)
+                       for o, c in clusters.items()},
+           "lost": {o: list(child.lost) for o, child in stream._children},
+           "victim": int(victim[0])}
+    if hasattr(clusters["fs0"], "_router"):
+        out["sites"] = {"chunks": sites.total("chunks"),
+                        "launches": sites.total("launches")}
+        out["routing_launches"] = sum(c.routing_launches
+                                      for c in clusters.values())
+        out["routing_reads"] = sum(c.routing_reads
+                                   for c in clusters.values())
+    stream.close()
+    fed.close()
+    for c in clusters.values():
+        c.close()
+    return out
+
+
+def verify_federation(run: dict) -> dict:
+    """Phase 7a (d)'s checks: every record of both origins delivered,
+    ``fs0``'s exactly once (its migration is graceful), ``fs1``'s at
+    least once (a shard was killed); the merged cursor at every
+    journal's last index; ``fs0`` migrated and ``fs1`` failed over."""
+    sizes = {(o, pid): last for o, per in run["last"].items()
+             for pid, last in per.items()}
+    counts = delivery_counts(run["deliveries"], sizes)
+    dups = {o: check_delivered(
+        f"federation {o}", {k: c for k, c in counts.items() if k[0] == o},
+        exactly_once=(o == "fs0")) for o in run["last"]}
+    check(run["cursor"] == run["last"], f"federation: cursor "
+          f"{run['cursor']} is not the journals' last indices {run['last']}")
+    st = run["stats"]
+    check(st["fs0"]["migrations_completed"] == 1, "federation: fs0's "
+          "migration did not complete")
+    check(st["fs1"]["shards_failed"] == 1 and
+          st["fs1"]["failover_redelivered"] > 0,
+          "federation: fs1's kill redelivered nothing")
+    check(run["lost"]["fs1"] == [run["victim"]] and
+          run["lost"]["fs0"] == [],
+          f"federation: lost shards {run['lost']}")
+    return {"duplicates": dups, "records": sum(sizes.values())}
+
+
+class ChurnConsumer(threading.Thread):
+    """Phase 7a (a)'s consumer, as ``bench_elastic.py``'s: one durable
+    member of a group over the wire, never restarted, fetching and
+    committing in a loop; counts each (journal, index) it gets and keeps
+    every routing epoch its stream moved to."""
+
+    def __init__(self, stream, sizes: dict):
+        super().__init__(daemon=True)
+        self.stream = stream
+        self.counts = {pid: np.zeros(n + 1, dtype=np.int64)
+                       for pid, n in sizes.items()}
+        self.unique = 0
+        self.epochs = [stream.epoch]
+        self.error = None
+        self._halt = threading.Event()
+
+    @property
+    def epoch(self) -> int:
+        return self.epochs[-1]
+
+    def run(self) -> None:
+        try:
+            while not self._halt.is_set():
+                moved = 0
+                for pid, batch in self.stream.fetch(1 << 16):
+                    idx = batch.indices_np().astype(np.int64)
+                    c = self.counts[pid]
+                    self.unique += int((c[idx] == 0).sum())
+                    c[idx] += 1
+                    moved += len(idx)
+                self.stream.commit()
+                if self.stream.epoch != self.epochs[-1]:
+                    self.epochs.append(self.stream.epoch)
+                if not moved:
+                    time.sleep(0.001)
+        except BaseException as exc:         # held by the phase
+            self.error = exc
+
+    def stop(self) -> None:
+        self._halt.set()
+        self.join(30)
+
+
+class Feeder(threading.Thread):
+    """Appends records ``lo + 1 .. hi`` to every journal,
+    ``ELASTIC_FEED_CHUNK`` a journal at a time, yielding between chunks
+    (a stream, not a pre-filled backlog)."""
+
+    def __init__(self, logs: dict, records: dict, lo: int, hi: int):
+        super().__init__(daemon=True)
+        self.logs, self.records, self.lo, self.hi = logs, records, lo, hi
+        self.fed = 0
+        self.error = None
+
+    def run(self) -> None:
+        try:
+            for a in range(self.lo, self.hi, ELASTIC_FEED_CHUNK):
+                b = min(self.hi, a + ELASTIC_FEED_CHUNK)
+                for pid, log in self.logs.items():
+                    log.log_batch(self.records[pid][a:b])
+                self.fed = b - self.lo
+                time.sleep(0)
+        except BaseException as exc:
+            self.error = exc
+
+
+class ChurnStorm(threading.Thread):
+    """Phase 7a (a)'s storm, as ``bench_elastic.py``'s: ``migrate_slots``
+    of half a random live shard's slots to another, each once the
+    previous topology change has committed and the consumer has seen its
+    epoch; at half the window (after one such migration at least) one
+    ``service.add_shard()`` and a migration onto the new shard; at three
+    quarters a split through the service: ``service.add_shard()``, then
+    half of the most-loaded shard's slots onto it."""
+
+    def __init__(self, svc, consumer, feeder, rng, window: int):
+        super().__init__(daemon=True)
+        self.svc, self.consumer, self.feeder = svc, consumer, feeder
+        self.rng, self.window = rng, window
+        self.migrations = self.added = 0
+        self.split = None
+        self.error = None
+        self._halt = threading.Event()
+
+    def _settled(self) -> bool:
+        """Wait for the last change to commit and reach the consumer."""
+        c = self.svc.cluster
+        while not self._halt.is_set():
+            if c._migration is None and self.consumer.epoch >= c.epoch:
+                return True
+            time.sleep(0.002)
+        return False
+
+    def _add(self) -> int:
+        new = self.svc.add_shard()
+        self.added += 1
+        return new
+
+    def run(self) -> None:
+        try:
+            c = self.svc.cluster
+            while self._settled():
+                fed = self.feeder.fed
+                if not self.added and self.migrations and \
+                        fed >= self.window // 2:
+                    dst, src = self._add(), None
+                elif self.added == 1 and fed >= 3 * self.window // 4:
+                    dst, src = self._add(), "most loaded"
+                else:
+                    dst = src = None
+                if dst is not None and not self._settled():
+                    break
+                live = [i for i in range(len(c.shards)) if c.alive[i]]
+                counts = c.routing.counts(len(c.shards))
+                owners = [i for i in live if counts[i] > 0 and i != dst]
+                if src == "most loaded":
+                    src = max(owners, key=lambda i: counts[i])
+                    self.split = (src, dst)
+                else:
+                    src = self.rng.choice(owners)
+                if dst is None:
+                    dst = self.rng.choice([i for i in live if i != src])
+                slots = c.routing.slots_of(src)
+                c.migrate_slots(slots[:max(1, len(slots) // 2)], dst)
+                self.migrations += 1
+                time.sleep(0.005)
+        except BaseException as exc:
+            self.error = exc
+
+    def stop(self) -> None:
+        self._halt.set()
+        self.join(30)
+
+
+def wait_for(what: str, cond, threads=(), svc=None) -> None:
+    """Poll ``cond`` until it holds; fail on a thread's error, the
+    distributor's failure or ``ELASTIC_DEADLINE_S``."""
+    deadline = time.perf_counter() + ELASTIC_DEADLINE_S
+    while not cond():
+        for th in threads:
+            check(th.error is None, f"{what}: {type(th).__name__} failed: "
+                  f"{th.error!r}")
+        if svc is not None:
+            check(svc.failure is None,
+                  f"{what}: the distributor thread failed: {svc.failure!r}")
+        check(time.perf_counter() < deadline,
+              f"{what}: not within {ELASTIC_DEADLINE_S} s")
+        time.sleep(0.002)
+
+
+def run_churn(records: dict, device, seed: int) -> dict:
+    """Phase 7a (a): ``bench_elastic.py``'s design on the port.  An
+    ``LcapClusterService`` over 4 in-process shards, each behind its own
+    port, routing on ``device`` in its distributor thread; one durable
+    member of group ``elastic`` over ``connect(service.addresses)`` (a
+    wire ``FanInStream`` that finds new shards by the epoch its replies
+    carry and the ``topology`` verb), never restarted.  A steady window
+    streams records 1 .. n of every journal, a churn window n + 1 .. 2n
+    while ``ChurnStorm`` runs (seeded).  Each window lasts until the
+    consumer holds all its records and the storm has split a shard."""
+    import random
+    from repro_torch.core.cluster import LcapCluster, LcapClusterService
+    from repro_torch.core.llog import Llog
+    from repro_torch.core.session import Subscription, connect
+    from repro_torch.kernels import stream_ops
+    n = len(next(iter(records.values()))) // 2
+    logs = {pid: Llog(pid) for pid in records}
+    cluster = LcapCluster(logs, n_shards=N_SHARDS, n_slots=N_SLOTS,
+                          batch_size=BATCH, device=device)
+    svc = LcapClusterService(cluster)
+    rng = random.Random(seed)
+    session = consumer = None
+    out = {"windows": {}}
+    with RoutingSites(cluster) as sites:
+        stream_ops.launches = 0
+        svc.start()
+        try:
+            session = connect(list(svc.addresses))
+            stream = session.subscribe(Subscription(
+                group="elastic", name="storm", auto_commit=False))
+            epoch0 = stream.epoch
+            consumer = ChurnConsumer(stream, {pid: 2 * n for pid in logs})
+            consumer.start()
+            for name, lo in (("steady", 0), ("churn", n)):
+                want = consumer.unique + n * len(logs)
+                feeder = Feeder(logs, records, lo, lo + n)
+                storm = (ChurnStorm(svc, consumer, feeder, rng, n)
+                         if name == "churn" else None)
+                threads = [t for t in (feeder, storm, consumer) if t]
+                t0 = time.perf_counter()
+                feeder.start()
+                if storm:
+                    storm.start()
+                # the window also waits for the storm's split, so that a
+                # short window still takes every kind of change
+                wait_for(f"elastic (a) {name} window",
+                         lambda: consumer.unique >= want and (
+                             storm is None or storm.split is not None),
+                         threads, svc)
+                seconds = time.perf_counter() - t0
+                feeder.join()
+                if storm:
+                    storm.stop()
+                    check(storm.error is None, f"elastic (a): the storm "
+                          f"failed: {storm.error!r}")
+                    out.update(storm_migrations=storm.migrations,
+                               storm_added=storm.added, split=storm.split)
+                out["windows"][name] = {
+                    "records": n * len(logs), "seconds": seconds,
+                    "records_per_s": n * len(logs) / seconds}
+            wait_for("elastic (a) settle", lambda: (
+                cluster._migration is None
+                and consumer.epoch >= cluster.epoch
+                and trimmed(logs)), [consumer], svc)
+            consumer.stop()
+            check(consumer.error is None,
+                  f"elastic (a): the consumer failed: {consumer.error!r}")
+            out.update(counts=consumer.counts, epochs=consumer.epochs,
+                       epoch0=epoch0, shards_seen=sorted(stream.shards),
+                       lost=list(stream.lost))
+        finally:
+            if consumer is not None:
+                consumer.stop()
+            if session is not None:
+                session.close()
+            svc.stop()
+        out.update(launches=stream_ops.launches,
+                   sites={"chunks": sites.total("chunks"),
+                          "launches": sites.total("launches")})
+    out.update(failure=svc.failure, stats=dict(cluster.stats),
+               epoch=cluster.epoch, trimmed=trimmed(logs),
+               routing_launches=cluster.routing_launches,
+               routing_reads=cluster.routing_reads,
+               shards=len(cluster.shards))
+    return out
+
+
+def verify_churn(run: dict) -> dict:
+    """Phase 7a (a)'s checks: both windows exactly once, every journal
+    trimmed, no distributor failure, the consumer at the final epoch
+    having seen a bump for each migration and each shard added, records
+    parked, and the storm's operations all in the cluster's stats."""
+    dups = check_delivered("elastic (a)", run["counts"], exactly_once=True)
+    st = run["stats"]
+    check(run["failure"] is None, f"elastic (a): the distributor failed: "
+          f"{run['failure']!r}")
+    check(run["trimmed"], "elastic (a): a journal did not trim")
+    check(run["lost"] == [], f"elastic (a): shards lost {run['lost']}")
+    check(st["shards_added"] == 2 and run["storm_added"] == 2 and
+          run["split"] is not None and run["shards"] == N_SHARDS + 2,
+          f"elastic (a): {st['shards_added']} shards added, split "
+          f"{run['split']}")
+    check(st["migrations_started"] == st["migrations_completed"]
+          == run["storm_migrations"] >= 3,
+          f"elastic (a): migrations {st['migrations_started']} started, "
+          f"{st['migrations_completed']} completed, storm "
+          f"{run['storm_migrations']}")
+    seen = len(run["epochs"]) - 1
+    check(run["epochs"][-1] == run["epoch"],
+          f"elastic (a): the consumer ended at epoch {run['epochs'][-1]}, "
+          f"the cluster at {run['epoch']}")
+    check(seen >= st["migrations_started"] + st["shards_added"],
+          f"elastic (a): the consumer saw {seen} epoch bumps for "
+          f"{st['migrations_started']} migrations and "
+          f"{st['shards_added']} shards added")
+    check(sorted(run["shards_seen"]) == list(range(run["shards"])),
+          f"elastic (a): the consumer reads shards {run['shards_seen']}")
+    check(st["parked_records"] > 0, "elastic (a): no record was parked")
+    return {"duplicates": dups, "epoch_bumps_seen": seen}
+
+
+def run_failover(journals: dict, records: dict, device, seed: int) -> dict:
+    """Phase 7a (b): phase 6b's deployment (four ``run_shard_daemon``
+    processes, each draining a co-located robinhood group of two) with a
+    ``mirror`` group over the wire (``connect(addresses)``) in this
+    process.  The journals hold their first halves (``from_packed``); the
+    first routing round offers them all, then one daemon (seeded) is
+    SIGKILLed with its share in flight, and the coordinator's next offer
+    or watermark call fails it over (``kill_shard``: the dead shard's
+    slots to the survivors, the journals re-read above its last
+    watermark and hashed on ``device``).  The second halves arrive 4096
+    records a journal a round."""
+    import multiprocessing as mp
+    import random
+    from repro_torch.core.cluster import (LcapCluster, RemoteShard,
+                                          run_shard_daemon)
+    from repro_torch.core.llog import from_packed
+    from repro_torch.core.session import Subscription, connect
+    from repro_torch.kernels import stream_ops
+    n = len(next(iter(records.values())))
+    half = n // 2
+    victim = random.Random(seed).randrange(N_SHARDS)
+    ctx = mp.get_context("spawn")
+    procs, conns = [], []
+    try:
+        t_spawn = time.perf_counter()
+        for i in range(N_SHARDS):
+            parent, child = ctx.Pipe()
+            p = ctx.Process(target=run_shard_daemon,
+                            args=(child, i, N_SHARDS),
+                            kwargs={"local_groups": [("robinhood", 2)]},
+                            daemon=True)
+            p.start()
+            procs.append(p)
+            conns.append(parent)
+        addrs = []
+        for conn in conns:
+            check(conn.poll(DAEMON_START_S), "a shard daemon did not report "
+                  f"its address within {DAEMON_START_S} s")
+            addrs.append(tuple(conn.recv()))
+        spawn_s = time.perf_counter() - t_spawn
+        logs = {pid: from_packed(pid, buf[:int(off[half])], off[:half],
+                                 ln[:half], first_index=1)
+                for pid, (buf, off, ln, _types) in journals.items()}
+        session = connect(addrs)
+        mirror = session.subscribe(Subscription(group="mirror",
+                                                auto_commit=False))
+        cluster = LcapCluster(logs, shards=[RemoteShard(a, index=i)
+                                            for i, a in enumerate(addrs)],
+                              n_slots=N_SLOTS, batch_size=BATCH,
+                              device=device)
+        deliveries = []
+        seen = {pid: np.zeros(n + 1, dtype=bool) for pid in logs}
+        unique, quiet = 0, None
+        fed, killed_at, kill_s = half, None, None
+        with RoutingSites(cluster) as sites:
+            stream_ops.launches = 0
+            t0 = time.perf_counter()
+            deadline = t0 + ELASTIC_DEADLINE_S
+            try:
+                while True:
+                    moved = cluster.pump(pump_shards=False)
+                    if killed_at is None:
+                        killed_at = cluster.stats["routed"]
+                        procs[victim].kill()
+                        procs[victim].join(30)
+                        kill_s = time.perf_counter() - t0
+                    elif fed < n:
+                        hi = min(n, fed + 4096)
+                        for pid, log in logs.items():
+                            log.log_batch(records[pid][fed:hi])
+                        fed = hi
+                    if not moved:
+                        cluster.collect_watermarks()
+                    got = 0
+                    for pid, batch in mirror.fetch(1 << 16):
+                        idx = batch.indices_np().astype(np.int64)
+                        deliveries.append((pid, idx))
+                        unique += int((~seen[pid][idx]).sum())
+                        seen[pid][idx] = True
+                        got += len(batch)
+                    mirror.commit()
+                    # a trimmed journal does not mean the survivors have
+                    # dispatched what the failover re-offered them: stop
+                    # when the mirror holds every record, or after a
+                    # quiet second (the check then finds what is lost)
+                    if fed == n and not moved and not got and trimmed(logs):
+                        quiet = quiet or time.perf_counter()
+                        if unique == N_MDTS * n or \
+                                time.perf_counter() - quiet > 1.0:
+                            break
+                    else:
+                        quiet = None
+                    check(time.perf_counter() < deadline, "the failover run "
+                          f"did not drain within {ELASTIC_DEADLINE_S} s")
+                    if not moved and not got:
+                        time.sleep(0.001)
+                seconds = time.perf_counter() - t0
+            finally:
+                lost = list(mirror.lost)
+                session.close()
+                cluster.close()
+            launches = stream_ops.launches
+        drained = {}
+        for i, conn in enumerate(conns):
+            if i == victim:
+                continue
+            conn.send("stop")
+            check(conn.poll(DAEMON_START_S), "a shard daemon did not report "
+                  "its drained count")
+            drained[i] = conn.recv()
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    return {"deliveries": deliveries, "lost": lost, "victim": victim,
+            "killed_at": killed_at, "kill_s": kill_s, "seconds": seconds,
+            "spawn_s": spawn_s, "stats": dict(cluster.stats),
+            "alive": list(cluster.alive), "trimmed": trimmed(logs),
+            "launches": launches, "routing_launches": cluster.routing_launches,
+            "routing_reads": cluster.routing_reads, "drained": drained,
+            "sites": {"chunks": sites.total("chunks"),
+                      "launches": sites.total("launches")},
+            "sizes": {pid: n for pid in logs}}
+
+
+def verify_failover(run: dict) -> dict:
+    """Phase 7a (b)'s checks: the mirror group lost no (journal, index)
+    through the SIGKILL (duplicates counted: at-least-once), the kill
+    redelivered, the stream dropped the dead shard, every journal
+    trimmed, and the redelivery hashed on the routing device."""
+    counts = delivery_counts(run["deliveries"], run["sizes"])
+    dups = check_delivered("elastic (b) mirror", counts, exactly_once=False)
+    st = run["stats"]
+    check(st["shards_failed"] == 1 and
+          not run["alive"][run["victim"]], f"elastic (b): shard "
+          f"{run['victim']} was not failed over ({st['shards_failed']} "
+          "failed)")
+    check(st["failover_redelivered"] > 0, "elastic (b): the failover "
+          "redelivered nothing")
+    check(run["lost"] == [run["victim"]], f"elastic (b): the stream lost "
+          f"{run['lost']}, not [{run['victim']}]")
+    check(run["trimmed"], "elastic (b): a journal did not trim")
+    check(run["sites"]["chunks"]["redeliver"] > 0, "elastic (b): the "
+          "redelivery hashed nothing")
+    return {"duplicates": dups}
+
+def check_launches(label: str, run: dict, launches: int) -> None:
+    """Phase 7a: every router chunk of the part was one kernel launch,
+    call site by call site."""
+    check(launches > 0, f"{label}: no fid_slots kernel launched")
+    check(launches == run["routing_launches"], f"{label}: fid_slots "
+          f"launches {launches} != routing chunks {run['routing_launches']}")
+    check(run["sites"]["launches"] == run["sites"]["chunks"],
+          f"{label}: launches by call site {run['sites']['launches']} != "
+          f"chunks {run['sites']['chunks']}")
+
+
+def elastic_phase(seed: int, smi: str) -> dict:
+    """Phase 7a: the paper's elastic operations on the card, parts (a)
+    to (d) (``run_churn``, ``run_failover``, ``run_elastic`` on the card
+    and on the CPU, ``run_federation``), each on phase 4's generator,
+    routing with the kernel, its launches counted from 0."""
+    from repro_torch.kernels import stream_ops
+    pkg = port_modules()
+    n = ELASTIC_RECORDS_PER_MDT
+    t0 = time.perf_counter()
+    arrays = {f"mdt{m}": make_journal_arrays(m, 2 * n, seed)
+              for m in range(N_MDTS)}
+    records = {pid: journal_records(pkg.R, a, 0, 2 * n)
+               for pid, a in arrays.items()}
+    # parts (b) to (d) take the first n records of each journal
+    journals = {pid: (buf, off[:n], ln[:n], types[:n])
+                for pid, (buf, off, ln, types) in arrays.items()}
+    first = {pid: recs[:n] for pid, recs in records.items()}
+    out = {"records_per_mdt": n, "setup_s": time.perf_counter() - t0}
+    log(f"elastic: {N_MDTS} journals x {2 * n} records generated and "
+        f"unpacked in {out['setup_s']:.3f} s (not timed below)")
+
+    # (a) a churn storm over the wire
+    t = time.perf_counter()
+    a = run_churn(records, "cuda", seed)
+    fa = verify_churn(a)
+    check_launches("elastic (a)", a, a["launches"])
+    st, w = a["stats"], a["windows"]
+    ratio = w["churn"]["records_per_s"] / w["steady"]["records_per_s"]
+    out["churn"] = {
+        "steady_records_per_s": w["steady"]["records_per_s"],
+        "churn_records_per_s": w["churn"]["records_per_s"],
+        "steady_s": w["steady"]["seconds"], "churn_s": w["churn"]["seconds"],
+        "churn_ratio": ratio, "reference_gate": CHURN_GATE,
+        "migrations_started": st["migrations_started"],
+        "migrations_completed": st["migrations_completed"],
+        "shards_added": st["shards_added"], "split": list(a["split"]),
+        "epoch_bumps": st["epoch_bumps"],
+        "epoch_bumps_seen": fa["epoch_bumps_seen"],
+        "parked_records": st["parked_records"],
+        "launches": a["launches"], "routing_reads": a["routing_reads"],
+        "launches_by_site": a["sites"]["launches"],
+        "migration_reads": a["sites"]["launches"]["migration"],
+        "seconds": time.perf_counter() - t}
+    c = out["churn"]
+    log(f"elastic (a) churn storm over the wire: steady "
+        f"{c['steady_records_per_s']:.1f} records/s, churn "
+        f"{c['churn_records_per_s']:.1f} records/s, ratio {ratio:.4f} "
+        f"(the reference's gate {CHURN_GATE}, not held) [{smi}]")
+    log(f"elastic (a): {c['migrations_started']} migrations started, "
+        f"{c['migrations_completed']} completed, {c['shards_added']} shards "
+        f"added (split {a['split'][0]} -> {a['split'][1]}), "
+        f"{c['epoch_bumps']} epoch bumps, {c['epoch_bumps_seen']} seen by the "
+        f"wire consumer, {c['parked_records']} records parked; fid_slots "
+        f"launches {c['launches']} = routing chunks, of them "
+        f"{c['migration_reads']} one read a launch in the migration branch "
+        f"(routing reads {c['routing_reads']}); exactly once over "
+        f"{4 * 2 * n} records, all journals trimmed")
+
+    # (b) a shard daemon SIGKILLed mid-stream
+    t = time.perf_counter()
+    b = run_failover(journals, first, "cuda", seed)
+    fb = verify_failover(b)
+    check_launches("elastic (b)", b, b["launches"])
+    out["failover"] = {
+        "victim": b["victim"], "killed_at_routed": b["killed_at"],
+        "duplicates": fb["duplicates"],
+        "failover_redelivered": b["stats"]["failover_redelivered"],
+        "lost": b["lost"], "run_s": b["seconds"], "spawn_s": b["spawn_s"],
+        "records_per_s": N_MDTS * n / b["seconds"],
+        "launches": b["launches"], "routing_reads": b["routing_reads"],
+        "launches_by_site": b["sites"]["launches"],
+        "drained_by_survivors": b["drained"],
+        "seconds": time.perf_counter() - t}
+    f = out["failover"]
+    log(f"elastic (b) shard daemon {f['victim']} SIGKILLed after "
+        f"{f['killed_at_routed']} of {N_MDTS * n} records routed: no record "
+        f"lost, {f['duplicates']} duplicates, {f['failover_redelivered']} "
+        f"redelivered, stream lost {f['lost']}, journals trimmed; "
+        f"{f['records_per_s']:.1f} records/s; fid_slots launches "
+        f"{f['launches']} = routing chunks ({f['launches_by_site']}) [{smi}]")
+
+    # (c) the elastic run, card against CPU
+    t = time.perf_counter()
+    stream_ops.launches = 0
+    card = run_elastic(pkg, first, ELASTIC_PARK_CAP)
+    card_s = time.perf_counter() - t
+    launches = stream_ops.launches
+    fc = verify_elastic(card, journals, ELASTIC_PARK_CAP)
+    check_launches("elastic (c)", card, launches)
+    t_cpu = time.perf_counter()
+    cpu_pkg = port_modules()
+    cpu_pkg.kw = {"device": "cpu"}
+    cpu = run_elastic(cpu_pkg, first, ELASTIC_PARK_CAP)
+    cpu_s = time.perf_counter() - t_cpu
+    verify_elastic(cpu, journals, ELASTIC_PARK_CAP)
+    for key in ("trace", "stats", "routing", "journal_acked", "alive",
+                "facts"):
+        check(card[key] == cpu[key], f"elastic (c): {key} differs between "
+              "routing on the card and on the CPU")
+    out["card_vs_cpu"] = {
+        "batches": len(card["trace"]), "stats": card["stats"],
+        "epoch": card["routing"][0], "facts": card["facts"],
+        "duplicates": fc["duplicates"], "late_records": fc["late_records"],
+        "launches": launches, "routing_reads": card["routing_reads"],
+        "launches_by_site": card["sites"]["launches"],
+        "card_s": card_s, "cpu_s": cpu_s,
+        "seconds": time.perf_counter() - t}
+    c = out["card_vs_cpu"]
+    log(f"elastic (c) card vs CPU: {c['batches']} batches, stats, epoch "
+        f"{c['epoch']}, owners and journal acks equal byte for byte; "
+        f"{card['stats']['migrations_completed']} migrations, split, cancel "
+        f"by kill ({c['facts']['parked_at_kill']} parked at the kill), "
+        f"backpressure at {c['facts']['max_parked']} parked (cap "
+        f"{ELASTIC_PARK_CAP}), late replay {c['late_records']} records; "
+        f"fid_slots launches {launches} = routing chunks by site "
+        f"{c['launches_by_site']}; card run {card_s:.3f} s, CPU run "
+        f"{cpu_s:.3f} s [{smi}]")
+    del card, cpu
+
+    # (d) two filesystems federated
+    t = time.perf_counter()
+    stream_ops.launches = 0
+    d = run_federation(pkg, first)
+    launches = stream_ops.launches
+    fd = verify_federation(d)
+    check_launches("elastic (d)", d, launches)
+    out["federation"] = {
+        "records": fd["records"], "duplicates": fd["duplicates"],
+        "cursor": d["cursor"], "lost": d["lost"],
+        "fs0_migrations": d["stats"]["fs0"]["migrations_completed"],
+        "fs1_redelivered": d["stats"]["fs1"]["failover_redelivered"],
+        "launches": launches, "routing_reads": d["routing_reads"],
+        "launches_by_site": d["sites"]["launches"],
+        "seconds": time.perf_counter() - t}
+    f = out["federation"]
+    log(f"elastic (d) federation of fs0 and fs1: {f['records']} records "
+        f"across a detach and resume, fs0 exactly once through a graceful "
+        f"migration, fs1 {f['duplicates']['fs1']} duplicates through a "
+        f"kill ({f['fs1_redelivered']} redelivered), cursor = the journals' "
+        f"last indices; fid_slots launches {launches} = routing chunks "
+        f"({f['launches_by_site']}) [{smi}]")
+    out["launches"] = {"churn": out["churn"]["launches"],
+                       "failover": out["failover"]["launches"],
+                       "card_vs_cpu": out["card_vs_cpu"]["launches"],
+                       "federation": out["federation"]["launches"]}
+    return out
+
 # ------------------------------------------------- phase 3: flash attention
 def flash_qkv(case, seed: int, dev):
     """q, k, v of ``case`` from N(0, 1); with a softcap, q times
@@ -2036,8 +3084,8 @@ def flash_phase(seed: int) -> dict:
     from repro_torch.kernels import flash_attention as fa
     dev = DEVICE
     out = {}
-    cases = FLASH_CASES + [FLASH_MAIN] + FLASH_EXTRA + FLASH_ENCDEC + \
-        FLASH_DENSE
+    cases = FLASH_CASES + [FLASH_MAIN, FLASH_MAIN_F32] + FLASH_EXTRA + \
+        FLASH_ENCDEC + FLASH_DENSE
     #: the shapes timed beside the serving path's, by their key in ``out``
     timed = {"moe_shape": FLASH_MOE, "vlm_shape": FLASH_VLM,
              "enc_shape": FLASH_ENC, "dec_shape": FLASH_DEC,
@@ -2084,6 +3132,57 @@ def flash_phase(seed: int) -> dict:
             out[name][kernel]["max_abs_err"] = errs[kernel, case]
             out[name][kernel]["planted_faults"] = \
                 caught[kernel, case]
+    out["simt_float32"] = dict(time_simt_float32(FLASH_MAIN_F32, seed, dev),
+                               max_abs_err=errs[fa.SIMT, FLASH_MAIN_F32])
+    return out
+
+
+def time_simt_float32(case, seed: int, dev) -> dict:
+    """The CUDA-core kernel in float32, which only it takes, timed in
+    turns with ``scaled_dot_product_attention`` on the same float32
+    tensors (TF32 off, as ``main`` sets it), with the plain version's
+    time and the bound at the card's float32 CUDA-core rate."""
+    from repro_torch.kernels import flash_attention as fa
+    (B, S, _Sk, H, KV, D), _dtype, causal, window, cap = case
+    q, k, v = flash_qkv(case, seed, dev)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fns = {fa.SIMT: lambda: fa.launch_kernel(fa.SIMT, q, k, v, causal=causal,
+                                             window=window, cap=cap),
+           "library": lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                   enable_gqa=True)}
+    want = fa.flash_attention_reference(q, k, v, causal=causal).float()
+    lib_err = float((fns["library"]().transpose(1, 2) - want).abs().max())
+    del want
+    samples = {name: [] for name in fns}
+    turns = {name: [] for name in fns}
+    for order in (tuple(fns), tuple(fns)[::-1]):
+        for name in order:
+            times = cuda_times_ms(fns[name], runs=10)
+            samples[name] += times
+            turns[name].append(statistics.median(times))
+    ms = {name: statistics.median(t) for name, t in samples.items()}
+    plain_ms = cuda_median_ms(lambda: fa.flash_attention_reference(
+        q, k, v, causal=causal), runs=3)
+    (bound_ms, bound_by), flops, nbytes = flash_bound_ms(case)
+    out = {"ms": ms[fa.SIMT], "turns_ms": turns[fa.SIMT],
+           "library_ms": ms["library"], "library_turns_ms": turns["library"],
+           "library_call": "scaled_dot_product_attention (float32)",
+           "library_max_abs_diff": lib_err, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_rate": FP32_FLOP_PER_S, "flops": flops, "bytes": nbytes,
+           "shape": list(case[0]), "dtype": "float32", "causal": causal}
+    log(f"kernels: {fa.SIMT} float32 B={B} S={S} H={H} KV={KV} D={D} "
+        f"causal={causal}: {ms[fa.SIMT]:.6f} ms (median of 20 launches by "
+        f"CUDA events; turn medians {turns[fa.SIMT][0]:.6f} / "
+        f"{turns[fa.SIMT][1]:.6f}), {bound_ms / ms[fa.SIMT]:.3f} of its "
+        f"bound {bound_ms:.6f} ms ({bound_by} at "
+        f"{FP32_FLOP_PER_S / 1e12:g} TFLOP/s float32: {flops / 1e9:.3f} "
+        f"GFLOP); scaled_dot_product_attention float32 {ms['library']:.6f} "
+        f"ms (max |diff| to the plain version {lib_err:.3g}), plain version "
+        f"{plain_ms:.6f} ms")
+    del q, k, v, qt, kt, vt, fns
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4248,6 +5347,7 @@ def main() -> int:
     sv = timed("serve", serve_phase, args.seed, smi)
     wire = timed("wire", wire_phase, args.seed, smi)
     act = timed("activity", activity_phase, args.seed, smi)
+    el = timed("elastic", elastic_phase, args.seed, smi)
     tr = timed("train", train_phase, args.seed, smi)
     trf = {tag: timed(tag, train_family_phase, C.get_config(arch), tag,
                       args.seed, smi, **kw)
@@ -4286,6 +5386,8 @@ def main() -> int:
         "wire_launches": {"cluster_service": wire["service"]["launches"],
                           "shard_daemons": wire["daemons"]["launches"]},
         "activity_launches": act["launches"],
+        # phase 7a's four parts, each counted from 0
+        "elastic_launches": el["launches"],
         "train_launches": tr["launches"]["fid_slots"],
         "train_families_launches": {
             tag: r["launches_by_kernel"]["fid_slots"]
@@ -4367,6 +5469,8 @@ def main() -> int:
         "bytes": fl[kernel]["bytes"],
         "max_abs_err_float32": fl[kernel]["max_abs_err_float32"],
         "max_abs_err_bfloat16": fl[kernel]["max_abs_err_bfloat16"],
+        # the CUDA-core kernel in float32 at the serving shape (phase 3)
+        "float32_shape": fl["simt_float32"] if kernel == fa.SIMT else None,
     } for name, kernel, source in (
         ("flash_attention_sm90", fa.SM90,
          "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"),
@@ -4383,6 +5487,7 @@ def main() -> int:
     print(json.dumps({"serve": sv}), flush=True)
     print(json.dumps({"wire": wire}), flush=True)
     print(json.dumps({"activity": act}), flush=True)
+    print(json.dumps({"elastic": el}), flush=True)
     print(json.dumps({"train": tr}), flush=True)
     print(json.dumps({"moe": mo}), flush=True)
     print(json.dumps({"ssm": sm}), flush=True)

@@ -65,6 +65,7 @@ version instead (the tests' path).
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -147,8 +148,10 @@ class SlotRouter:
     device buffer, one copy of the int64 slots back and one
     synchronize.  On the CPU the kernel's plain PyTorch version hashes
     each chunk of the same staging.  ``chunks`` counts the chunks
-    hashed: one launch each on the card.  The lock covers replay reads
-    racing the routing loop."""
+    hashed (one launch each on the card) and ``reads`` the non-empty
+    batches.  The lock covers replay reads, from a shard service's
+    thread, racing the routing loop: the staging, the launches and both
+    counts."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -157,6 +160,7 @@ class SlotRouter:
         self._dev_rows: Optional[torch.Tensor] = None  # on the card
         self._dev_slots: Optional[torch.Tensor] = None
         self.chunks = 0
+        self.reads = 0
         self._lock = threading.Lock()
 
     def slots(self, batch: "R.RecordBatch", n_slots: int) -> np.ndarray:
@@ -175,6 +179,7 @@ class SlotRouter:
         out = np.empty(sum(r.shape[0] for r in rows), dtype=np.int64)
         if out.size:
             with self._lock:
+                self.reads += sum(1 for r in rows if r.shape[0])
                 cap = CHUNK_ROWS
                 self._stage(min(out.size, cap))
                 staged = self._rows.numpy()
@@ -494,8 +499,6 @@ class LcapCluster:
             raise ClusterError(f"n_slots must be in [1, 2^31), got {n_slots}")
         self.device = _resolve_device(device)
         self._router = SlotRouter(self.device)
-        #: non-empty batches hashed to slots
-        self.routing_reads = 0
         self._modules = list(modules or [])
         self._proxy_defaults = dict(proxy_kwargs)
         if shards is None:
@@ -521,6 +524,10 @@ class LcapCluster:
         #: shard index -> (pid -> last known shard watermark)
         self.shard_acked: List[Dict[str, int]] = [dict() for _ in self.shards]
         self._lock = threading.RLock()
+        #: threads waiting for ``_lock`` to change the topology; see
+        #: ``_change``
+        self.changes_waiting = 0
+        self._waiting_lock = threading.Lock()
         #: the one in-flight graceful migration (None when settled)
         self._migration: Optional[_Migration] = None
         #: records read for draining slots, held until the commit hands
@@ -559,6 +566,28 @@ class LcapCluster:
     def live_shards(self) -> List:
         return [s for i, s in enumerate(self.shards) if self.alive[i]]
 
+    @contextlib.contextmanager
+    def _change(self):
+        """Hold the coordinator lock for a topology change (a producer,
+        a migration, a shard added, split or failed).  Python's locks
+        are not fair: a routing loop that pumps round after round takes
+        the lock back the moment it lets it go, and a change asked for
+        from another thread would wait until the traffic stops.  So the
+        change counts itself in ``changes_waiting`` until it holds the
+        lock, and ``LcapClusterService``'s routing loop lets it in
+        before its next round."""
+        with self._waiting_lock:
+            self.changes_waiting += 1
+        try:
+            self._lock.acquire()
+        finally:
+            with self._waiting_lock:
+                self.changes_waiting -= 1
+        try:
+            yield
+        finally:
+            self._lock.release()
+
     # ------------------------------------------------------------ producers
     def add_producer(self, pid: str, log: Llog) -> None:
         """Register journal ``pid`` once, with the coordinator; every
@@ -567,7 +596,7 @@ class LcapCluster:
         journal's whole live backlog, and a restarted one resumes at
         its own acked watermark, not at a trim point another reader may
         be holding back."""
-        with self._lock:
+        with self._change():
             rid, start = log.attach_reader(f"lcap-{pid}")
             self.journals[pid] = log
             self.reader_ids[pid] = rid
@@ -590,19 +619,22 @@ class LcapCluster:
         the card."""
         return self._router.chunks
 
+    @property
+    def routing_reads(self) -> int:
+        """Non-empty batches the cluster's router hashed to slots
+        (journal reads, and the replay reads of shard threads)."""
+        return self._router.reads
+
     def batch_slots(self, batch: R.RecordBatch) -> np.ndarray:
         """Slots of ``batch``'s target FIDs, hashed on the cluster's
         device — every routing decision of the cluster goes through
         here or through ``batch_slots_many``."""
-        if len(batch):
-            self.routing_reads += 1
         return self._router.slots(batch, self.n_slots)
 
     def batch_slots_many(self, batches: Sequence[R.RecordBatch],
                          ) -> List[np.ndarray]:
         """``batch_slots`` of every batch, hashed together in chunks of
         up to ``CHUNK_ROWS`` rows (a routing round's reads)."""
-        self.routing_reads += sum(1 for batch in batches if len(batch))
         return self._router.slots_many(batches, self.n_slots)
 
     def _partition(self, batch: R.RecordBatch) -> List[np.ndarray]:
@@ -614,6 +646,11 @@ class LcapCluster:
         """One routing round: read every journal forward, partition by
         FID slot, push one deep-batched offer burst per shard —
         including empty ones, which carry the watermark advance.
+        A round reads each journal up to its last index when the round
+        reaches it: records a producer appends meanwhile wait for the
+        next round, so a round stays bounded however fast the journals
+        grow (and the offers, and a topology change waiting for the
+        lock, are not held back behind a stream).
         Without a migration in flight the round's reads are hashed
         together (``batch_slots_many``: one launch per chunk).  Rows
         whose slot is draining (mid-migration) are parked instead of
@@ -630,15 +667,17 @@ class LcapCluster:
             reads = []
             cursors = dict(self.cursors)
             for pid, log in self.journals.items():
-                while True:
-                    batch = log.read(cursors[pid], self.batch_size)
+                end = log.last_index
+                while cursors[pid] <= end:
+                    want = min(self.batch_size, end + 1 - cursors[pid])
+                    batch = log.read(cursors[pid], want)
                     if not batch:
                         break
                     got = len(batch)
                     hi = batch.packed_index(got - 1)
                     cursors[pid] = hi + 1
                     reads.append((pid, batch, hi))
-                    if got < self.batch_size:
+                    if got < want:
                         break
             hashed = self.batch_slots_many([batch for _, batch, _ in reads])
             self.cursors.update(cursors)
@@ -653,8 +692,11 @@ class LcapCluster:
         else:
             drain = self.routing.draining_mask()
             for pid, log in self.journals.items():
-                while self._parked_count < self.park_cap:
-                    batch = log.read(self.cursors[pid], self.batch_size)
+                end = log.last_index
+                while (self._parked_count < self.park_cap
+                       and self.cursors[pid] <= end):
+                    want = min(self.batch_size, end + 1 - self.cursors[pid])
+                    batch = log.read(self.cursors[pid], want)
                     if not batch:
                         break
                     got = len(batch)
@@ -681,7 +723,7 @@ class LcapCluster:
                             offers[i].append((pid, batch.select(shard_rows),
                                               hi))
                     n += got
-                    if got < self.batch_size:
+                    if got < want:
                         break
         # two-phase: fire every shard's burst first, then drain the
         # replies — the shards ingest their shares concurrently instead
@@ -748,7 +790,7 @@ class LcapCluster:
         Returns the number of slots actually draining (slots already
         owned by ``target`` are skipped).  One migration may be in
         flight at a time."""
-        with self._lock:
+        with self._change():
             if self._migration is not None:
                 raise ClusterError("a migration is already in flight")
             if not (0 <= target < len(self.shards)) or not self.alive[target]:
@@ -813,7 +855,7 @@ class LcapCluster:
         The epoch bumps so live consumers discover the wider shard set;
         records land on it once slots are migrated over
         (``migrate_slots`` / ``split_shard``)."""
-        with self._lock:
+        with self._change():
             i = len(self.shards)
             if shard is None:
                 kw = dict(self._proxy_defaults)
@@ -858,7 +900,7 @@ class LcapCluster:
         ``source``'s slot range (the most-loaded live shard when
         unspecified) to it while producers keep offering.  Returns the
         new shard's index; the migration commits asynchronously."""
-        with self._lock:
+        with self._change():
             if self._migration is not None:
                 raise ClusterError("a migration is already in flight")
             if source is None:
@@ -1162,7 +1204,7 @@ class LcapCluster:
         slots are reassigned round-robin to the survivors; a graceful
         migration the dead shard participated in is cancelled first and
         its parked records folded into the redelivery."""
-        with self._lock:
+        with self._change():
             if not self.alive[index]:
                 return
             self.alive[index] = False
@@ -1358,6 +1400,11 @@ class LcapClusterService:
         try:
             while not self._stop.is_set():
                 moved = self.cluster.pump(pump_shards=False)
+                # a topology change waiting for the coordinator lock
+                # goes first (see LcapCluster._change)
+                while (self.cluster.changes_waiting
+                       and not self._stop.is_set()):
+                    time.sleep(0.0001)
                 if not moved:
                     # idle: no offer replies to piggyback watermarks on,
                     # so poll them explicitly — the collective ack

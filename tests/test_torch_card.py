@@ -17,7 +17,9 @@ need a gradient included.  A decode step of gemma2-9b at full width and two
 layers, after its local layer's 4096-slot ring has wrapped, must agree
 with a prefill one token longer within 0.12 (phase 12a).  The activity
 consumers of ``chip_smoke.py``'s phase 7 over a cluster routing on the
-card must end in the state they reach over one routing on the CPU, a
+card must end in the state they reach over one routing on the CPU, so
+must phase 7a's elastic scenario and two-filesystem federation (the
+same deliveries, stats and cursors, every routing chunk one launch), a
 training step on the card must agree with the same step on the CPU
 (phase 8, and phases 8a-8c's families, whisper-small with its frames),
 phases 8a-8c's helper must pass its checks at smoke size with no kernel
@@ -367,6 +369,63 @@ def test_activity_consumers_on_the_card_like_on_the_cpu(card, tmp_path):
         assert launched == (chunks if device == "cuda" else 0)
         assert 0 < chunks < run["cluster"].routing_reads
     assert states[0] == states[1]
+
+
+def elastic_runs(build, n: int):
+    """``build(pkg, records)`` with routing on the card and on the CPU:
+    each run and the ``fid_slots`` launches it made."""
+    smoke = load_smoke()
+    journals = {f"mdt{m}": smoke.make_journal_arrays(m, n, 2)
+                for m in range(4)}
+    out = []
+    for device in ("cuda", "cpu"):
+        pkg = smoke.port_modules()
+        pkg.kw = {"device": device}
+        records = {pid: smoke.journal_records(pkg.R, j, 0, n)
+                   for pid, j in journals.items()}
+        before = stream_ops.launches
+        run = build(smoke, pkg, records)
+        out.append((run, stream_ops.launches - before))
+    return smoke, journals, out
+
+
+def test_elastic_run_on_the_card_like_on_the_cpu(card):
+    """chip_smoke.py's phase 7a (c) at 4 x 4096 records: migrations under
+    backpressure, a split, a migration cancelled by its source's death
+    and a replay bootstrap deliver byte for byte the same with routing
+    on the card as on the CPU, with the same stats, epoch, owners and
+    journal acks; every routing chunk of the card's run, at every call
+    site, is one kernel launch."""
+    n, cap = 4096, 1024
+    smoke, journals, ((gpu, launched), (cpu, none)) = elastic_runs(
+        lambda smoke, pkg, recs: smoke.run_elastic(pkg, recs, cap, 256), n)
+    for run in (gpu, cpu):
+        smoke.verify_elastic(run, journals, cap)
+    for key in ("trace", "stats", "routing", "journal_acked", "alive",
+                "facts"):
+        assert gpu[key] == cpu[key], key
+    assert launched == gpu["routing_launches"] > 0 and none == 0
+    assert gpu["sites"]["launches"] == gpu["sites"]["chunks"]
+
+
+def test_federation_on_the_card_like_on_the_cpu(card):
+    """chip_smoke.py's phase 7a (d) at 2 x 4096 records a filesystem: the
+    two-filesystem federation through a detach and resume, a graceful
+    migration in fs0 and a shard killed in fs1 delivers the same records
+    and ends at the same cursor with routing on the card as on the
+    CPU."""
+    smoke, _journals, ((gpu, launched), (cpu, none)) = elastic_runs(
+        lambda smoke, pkg, recs: smoke.run_federation(pkg, recs), 4096)
+    for run in (gpu, cpu):
+        smoke.verify_federation(run)
+
+    def delivered(run):
+        return sorted((key, i) for key, idx in run["deliveries"]
+                      for i in idx.tolist())
+    assert delivered(gpu) == delivered(cpu)
+    assert gpu["cursor"] == cpu["cursor"] == gpu["last"]
+    assert gpu["stats"] == cpu["stats"]
+    assert launched == gpu["routing_launches"] > 0 and none == 0
 
 
 TRAIN_ARCHS = ["starcoder2-3b", "granite-moe-1b-a400m", "mamba2-780m",
