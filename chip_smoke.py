@@ -123,6 +123,36 @@ Phases, in order; any failed check exits nonzero and prints no result:
             one member migrating (exactly once), the other killing a
             shard (at least once), the merged cursor at every journal's
             last index;
+7b. proxy   the whole LCAP proxy on the card-routed cluster, on phase 4's
+            generator with scratch files (about a fifth of the CREATEs
+            unlinked within 32 records) and two training hosts' journals
+            from the port's ``ActivityTracker``, every journal with a
+            history tier, each part's ``fid_slots`` launches counted from 0
+            and equal to its router's chunks, call site by call site: (a)
+            ``run_proxy_chain`` over 4 x 65,536 MDT and 2 x 16,384
+            training records, fed 1/16 a round: 4 shards whose proxies
+            chain ``TypeFilter`` (every type but CL_CLOSE),
+            ``CoalesceHeartbeats``, ``CancelCompensating`` and
+            ``ReorderByTarget``; robinhood x2, audit, a group per tenant
+            (jobid prefixes dd., cp., rsync., tar.) and an ephemeral
+            reader; tenant dd under a quota on a step clock, a shard added
+            at halfway and 8 slots migrated to it while the quota holds,
+            the quota lifted once dd parked there; on the card and, in a
+            spawned process at the same time, on the CPU, equal byte for
+            byte (the trace by its SHA-256); robinhood's deliveries and each
+            module's removed rows = every record once, audit and each
+            tenant group = robinhood's records of its types or scope, dd
+            parked (on the added shard too) and then served in full,
+            records/s beside phase 4's; (b) ``run_replay`` over 4 x 16,384
+            MDT records: an ``LcapClusterService`` with the same chain, a
+            ``Feeder`` thread, a durable robinhood member and the dd and
+            rsync groups over ``connect(addresses)``, and, once half is
+            routed and acknowledged, a ``replay=True`` group of tenant cp
+            draining its bootstrap, hashed on the shard services' threads,
+            while the second half is routed: no (journal, index) twice,
+            live exactly its scope above each shard's handoff watermark,
+            every replayed row on its serving shard's slots by the plain
+            hash, no replay chunk on the distributor's thread;
 8. train    starcoder2-3b at full width and depth (30 layers, 4.31 B
             parameters) trained on the card by the port's ``Trainer``
             with fp32 master weights and AdamW (69 GB of state), 2 hosts'
@@ -246,6 +276,7 @@ Phases, in order; any failed check exits nonzero and prints no result:
             decode step on heads sharded 16 ways); a prefill traced
             whole in the probes' coarse attention grid (the same FLOPs
             and collectives, fewer bytes), a decode in the step's own;
+            the cells traced by ``DRYRUN_WORKERS`` processes at once;
             every cell traced and ``ok``; per-device FLOPs, bytes,
             collective bytes, the rank's peak memory beside the card's
             and the dominant roofline term; (b) the one-card bound of
@@ -262,7 +293,8 @@ Phases, in order; any failed check exits nonzero and prints no result:
             the data sheet.
 
 Then a JSON line of serve numbers, one of wire numbers, one of activity
-numbers, one of elastic numbers, one of training numbers, one of MoE
+numbers, one of elastic numbers, one of proxy numbers, one of training
+numbers, one of MoE
 serving numbers, one of SSD serving numbers, one of hybrid serving
 numbers, one of VLM serving
 numbers, one of audio serving numbers, one of gemma2 and one of qwen2.5
@@ -337,6 +369,31 @@ ELASTIC_FEED_CHUNK = 256
 ELASTIC_PARK_CAP = 16_384
 ELASTIC_DEADLINE_S = 300.0
 CHURN_GATE = 0.5
+# phase 7b: the whole proxy (stream modules, tenants, a threaded replay)
+PROXY_RECORDS_PER_MDT = 65_536
+PROXY_TRAIN_HOSTS = 2
+PROXY_TRAIN_RECORDS = 16_384
+PROXY_TRAIN_RUN = 7
+SCRATCH_SHARE = 0.2
+SCRATCH_WINDOW = 32
+CKPT_EVERY = 64
+CKPT_SHARDS = 8
+CKPT_REWRITES = 2
+TENANTS = ("dd", "cp", "rsync", "tar")
+# dd's quota, per shard: records a clock second (one round) and burst,
+# the records per MDT journal over this: about 2/3 of dd's share of a
+# round on a shard, so dd parks and the added shard's first share parks
+# it there
+QUOTA_DIVISOR = 112
+PROXY_FEED_ROUNDS = 16
+PROXY_MOVED_SLOTS = 8
+PROXY_LIFT_WAIT = 8
+PROXY_MAX_ROUNDS = 10_000
+PROXY_DEADLINE_S = 120.0
+# (b) streams the first records of each MDT journal: the threaded wire
+# path (three consumers and a replay on one interpreter) runs far slower
+# than the threadless one, and the phase must stay within 45 s
+PROXY_REPLAY_RECORDS_PER_MDT = 16_384
 EDGE_FIDS = [(0, 0, 0), (1, 0, 0), ((1 << 64) - 1, (1 << 32) - 1,
                                     (1 << 32) - 1), (1 << 63, 1, 2)]
 #: operation mix of the main path (percent)
@@ -525,6 +582,11 @@ DRYRUN_CELLS = (("granite-8b", "decode_32k", True, True, False),
                 (AUDIO_ARCH, "prefill_32k", True, False, True),
                 (SSM_ARCH, "decode_32k", True, False, False),
                 ("jamba-v0.1-52b", "decode_32k", True, False, False))
+#: processes tracing (a)'s cells at once, in the order above (a trace is
+#: one host thread on meta tensors; the card's host has 8 cores; of the
+#: some 140 s the cells take one after another, mamba2-780m's prefill
+#: takes 53)
+DRYRUN_WORKERS = 4
 #: the probe model's FLOPs against the whole trace (relative)
 DRYRUN_PROBE_TOL = 0.01
 #: (c): the bf16 product's side, the copy's bytes, and how far above the
@@ -548,6 +610,16 @@ def check(cond, what: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def spawn_pool(workers: int):
+    """A pool of ``workers`` fresh processes, spawned (this process holds
+    CUDA, which a forked child cannot use); its ``with`` block waits for
+    them and stops them."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    return ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"))
 
 
 def nvidia_smi_line() -> str:
@@ -813,12 +885,17 @@ def kernel_phase(seed: int) -> dict:
 
 
 # --------------------------------------------------------------- phase 4
-def make_journal_arrays(m: int, n: int, seed: int):
+def make_journal_arrays(m: int, n: int, seed: int, scratch: bool = False):
     """MDT ``m``'s journal as packed records (buffer, offsets, lengths,
     types), built in bulk: the operation mix, a ``procname.uid`` jobid
     from 64 jobs on every record, target FIDs on sequence
     ``0x200000400 + m`` with dense oids in 1..65536 (reused, so targets
-    have cr_prev chains), and a source FID pair + name for renames."""
+    have cr_prev chains), and a source FID pair + name for renames.
+    With ``scratch``, temporary files: about ``SCRATCH_SHARE`` of the
+    CREATEs get an UNLINK of the same target within the next
+    ``SCRATCH_WINDOW`` records (the paper's creat/unlink case), each in
+    place of a record that is no rename and no such CREATE, drawn from a
+    generator of their own (the other draws are those without it)."""
     from repro_torch.core import records as T
     rng = np.random.default_rng([seed, m])
     codes = np.array([getattr(T, name) for name, _ in MIX], dtype=np.uint16)
@@ -828,6 +905,18 @@ def make_journal_arrays(m: int, n: int, seed: int):
     oid = rng.integers(1, 65537, n).astype(np.uint32)
     job = rng.integers(0, 64, n)
     rename = types == T.CL_RENAME
+    if scratch:
+        srng = np.random.default_rng([seed, m, 1])
+        made = np.flatnonzero(types == T.CL_CREATE)
+        made = made[srng.random(len(made)) < SCRATCH_SHARE]
+        gone = made + srng.integers(1, SCRATCH_WINDOW + 1, len(made))
+        keep = gone < n
+        made, gone = made[keep], gone[keep]
+        keep = ~rename[gone] & ~np.isin(gone, made)
+        gone, first = np.unique(gone[keep], return_index=True)
+        made = made[keep][first]
+        types[gone] = T.CL_UNLINK
+        oid[gone] = oid[made]
     # cr_prev: the previous record with the same target (0 if none)
     order = np.argsort(oid, kind="stable")
     prev = np.zeros(n, dtype=np.uint64)
@@ -2011,10 +2100,12 @@ def port_modules():
     """The port's modules as ``run_elastic`` and ``run_federation``
     take a package (the CPU tests pass the reference's the same way)."""
     from types import SimpleNamespace
-    from repro_torch.core import cluster, federation, llog, session
+    from repro_torch.core import (cluster, federation, llog, modules,
+                                  session, tenancy)
     from repro_torch.core import records as R
     return SimpleNamespace(R=R, cluster=cluster, llog=llog, session=session,
-                           federation=federation, kw={"device": "cuda"})
+                           federation=federation, modules=modules,
+                           tenancy=tenancy, kw={"device": "cuda"})
 
 
 class RoutingSites:
@@ -2025,9 +2116,10 @@ class RoutingSites:
     migration's journal re-read), ``reoffer`` (a cancelled migration's
     parked records) and ``replay`` (``ClusterReplayReader.read``, the
     shard filter of a replay bootstrap).  Counts each cluster's router
-    chunks (on either device) and the ``stream_ops.launches`` made in
-    them (the card's).  Wraps the call sites for the life of the
-    context, without changing what they do."""
+    chunks (on either device), the ``stream_ops.launches`` made in them
+    (the card's) and the threads that hashed them.  Wraps the call sites
+    for the life of the context, without changing what they do; the
+    counting runs inside the router's lock."""
 
     SITES = ("round", "migration", "redeliver", "reoffer", "replay", "other")
 
@@ -2035,6 +2127,11 @@ class RoutingSites:
         self.clusters = clusters
         self.chunks = [dict.fromkeys(self.SITES, 0) for _ in clusters]
         self.launches = [dict.fromkeys(self.SITES, 0) for _ in clusters]
+        #: the threads that hashed each site's chunks, and every chunk's
+        #: site in the order the router hashed them
+        self.threads = [{site: set() for site in self.SITES}
+                        for _ in clusters]
+        self.order = [[] for _ in clusters]
         self._local = threading.local()
 
     def _in(self, site: str, fn, *args):
@@ -2056,6 +2153,8 @@ class RoutingSites:
                 site = stack[-1] if stack else "other"
                 self.chunks[k][site] += 1
                 self.launches[k][site] += stream_ops.launches - before
+                self.threads[k][site].add(threading.current_thread().name)
+                self.order[k].append(site)
 
             def route(c=c, route_=c._route):
                 return self._in("round" if c._migration is None
@@ -2410,19 +2509,26 @@ def verify_federation(run: dict) -> dict:
     return {"duplicates": dups, "records": sum(sizes.values())}
 
 
-class ChurnConsumer(threading.Thread):
-    """Phase 7a (a)'s consumer, as ``bench_elastic.py``'s: one durable
-    member of a group over the wire, never restarted, fetching and
-    committing in a loop; counts each (journal, index) it gets and keeps
-    every routing epoch its stream moved to."""
+class WireConsumer(threading.Thread):
+    """A durable member of a group over the wire, never restarted,
+    fetching and committing in a loop (phase 7a (a)'s, as
+    ``bench_elastic.py``'s, and phase 7b (b)'s).  With ``sizes``
+    (journal -> records) it counts each (journal, index) it gets; with
+    ``keep`` it keeps each batch's shard, journal and indices, and with
+    ``rows`` the batch's target FIDs and jobids' first 8 bytes too.  It
+    keeps every routing epoch its stream moved to, and follows the
+    stream's ``replaying`` until the bootstrap ends."""
 
-    def __init__(self, stream, sizes: dict):
+    def __init__(self, stream, sizes: dict | None = None,
+                 keep: bool = False, rows: bool = False):
         super().__init__(daemon=True)
-        self.stream = stream
-        self.counts = {pid: np.zeros(n + 1, dtype=np.int64)
-                       for pid, n in sizes.items()}
-        self.unique = 0
+        self.stream, self.keep, self.rows = stream, keep or rows, rows
+        self.counts = None if sizes is None else {
+            pid: np.zeros(n + 1, dtype=np.int64) for pid, n in sizes.items()}
+        self.unique = self.records = 0
+        self.batches = []
         self.epochs = [stream.epoch]
+        self.replaying = stream.replaying
         self.error = None
         self._halt = threading.Event()
 
@@ -2430,20 +2536,32 @@ class ChurnConsumer(threading.Thread):
     def epoch(self) -> int:
         return self.epochs[-1]
 
+    def _take(self, pid, batch) -> int:
+        idx = batch.indices_np().astype(np.int64)
+        if self.counts is not None:
+            c = self.counts[pid]
+            self.unique += int((c[idx] == 0).sum())
+            c[idx] += 1
+        if self.keep:
+            entry = (shard_of(self.stream, batch), pid, idx)
+            if self.rows:
+                entry += (tuple(np.asarray(c).copy()
+                                for c in batch.tfid_cols()),
+                          np.asarray(batch.jobid_col(8)).copy())
+            self.batches.append(entry)
+        return len(idx)
+
     def run(self) -> None:
         try:
             while not self._halt.is_set():
-                moved = 0
-                for pid, batch in self.stream.fetch(1 << 16):
-                    idx = batch.indices_np().astype(np.int64)
-                    c = self.counts[pid]
-                    self.unique += int((c[idx] == 0).sum())
-                    c[idx] += 1
-                    moved += len(idx)
+                got = sum(self._take(pid, batch)
+                          for pid, batch in self.stream.fetch(1 << 16))
                 self.stream.commit()
+                self.records += got
                 if self.stream.epoch != self.epochs[-1]:
                     self.epochs.append(self.stream.epoch)
-                if not moved:
+                self.replaying = self.stream.replaying
+                if not got:
                     time.sleep(0.001)
         except BaseException as exc:         # held by the phase
             self.error = exc
@@ -2544,19 +2662,23 @@ class ChurnStorm(threading.Thread):
         self.join(30)
 
 
-def wait_for(what: str, cond, threads=(), svc=None) -> None:
+def wait_for(what: str, cond, threads=(), svc=None, progress=None,
+             limit_s: float = ELASTIC_DEADLINE_S) -> None:
     """Poll ``cond`` until it holds; fail on a thread's error, the
-    distributor's failure or ``ELASTIC_DEADLINE_S``."""
-    deadline = time.perf_counter() + ELASTIC_DEADLINE_S
+    distributor's failure or ``limit_s``, with the last samples of
+    ``progress`` (a ``Progress``) when the run stalled."""
+    deadline = time.perf_counter() + limit_s
     while not cond():
         for th in threads:
             check(th.error is None, f"{what}: {type(th).__name__} failed: "
                   f"{th.error!r}")
-        if svc is not None:
-            check(svc.failure is None,
-                  f"{what}: the distributor thread failed: {svc.failure!r}")
-        check(time.perf_counter() < deadline,
-              f"{what}: not within {ELASTIC_DEADLINE_S} s")
+        failure = getattr(svc, "failure", None)
+        check(failure is None,
+              f"{what}: the distributor thread failed: {failure!r}")
+        if time.perf_counter() >= deadline:
+            tail = "" if progress is None else \
+                f"; last samples {progress.samples[-5:]}"
+            check(False, f"{what}: not within {limit_s} s{tail}")
         time.sleep(0.002)
 
 
@@ -2591,7 +2713,7 @@ def run_churn(records: dict, device, seed: int) -> dict:
             stream = session.subscribe(Subscription(
                 group="elastic", name="storm", auto_commit=False))
             epoch0 = stream.epoch
-            consumer = ChurnConsumer(stream, {pid: 2 * n for pid in logs})
+            consumer = WireConsumer(stream, {pid: 2 * n for pid in logs})
             consumer.start()
             for name, lo in (("steady", 0), ("churn", n)):
                 want = consumer.unique + n * len(logs)
@@ -2985,6 +3107,747 @@ def elastic_phase(seed: int, smi: str) -> dict:
                        "failover": out["failover"]["launches"],
                        "card_vs_cpu": out["card_vs_cpu"]["launches"],
                        "federation": out["federation"]["launches"]}
+    return out
+
+# -------------------------------------------------------- phase 7b: proxy
+def tracker_arrays(host: int, n: int, seed: int):
+    """Training host ``host``'s journal of ``n`` records, logged by the
+    port's ``ActivityTracker`` (run ``PROXY_TRAIN_RUN``), as
+    ``make_journal_arrays`` returns a journal: each step a step commit,
+    two heartbeats and a data range; every ``CKPT_EVERY`` steps a
+    checkpoint of ``CKPT_SHARDS`` shards, ``CKPT_REWRITES`` of them
+    written again at the same step (the superseding write has the same
+    target FID)."""
+    from repro_torch.track.tracker import ActivityTracker
+    rng = np.random.default_rng([seed, 100 + host])
+    tr = ActivityTracker(PROXY_TRAIN_RUN, host,
+                         jobid=f"train.{PROXY_TRAIN_RUN}",
+                         shard=(0, host, 0, 0))
+    tr.llog.register_reader("dump")
+    step = 0
+    while tr.llog.last_index < n:
+        dt = float(rng.uniform(0.9, 1.1))
+        tr.step_commit(step, float(rng.uniform(1.0, 4.0)), dt, 8192)
+        tr.heartbeat(step, dt)
+        tr.heartbeat(step, dt)
+        tr.data_consume(step, host, step * 8, step * 8 + 8)
+        step += 1
+        if step % CKPT_EVERY == 0:
+            again = rng.choice(CKPT_SHARDS, CKPT_REWRITES, replace=False)
+            for s in list(range(CKPT_SHARDS)) + sorted(again.tolist()):
+                tr.ckpt_write(step, s, 1 << 20, f"ckpt/{step}/{s}",
+                              CKPT_SHARDS)
+    packed = []
+    while len(packed) < n:
+        batch = tr.llog.read(len(packed) + 1, n - len(packed))
+        packed += [batch.packed(i) for i in range(len(batch))]
+    lengths = np.array([len(b) for b in packed], dtype=np.int64)
+    offsets = np.zeros(n, dtype=np.int64)
+    np.cumsum(lengths[:-1], out=offsets[1:])
+    types = np.array([int.from_bytes(b[4:6], "little") for b in packed],
+                     dtype=np.uint16)
+    return b"".join(packed), offsets, lengths, types
+
+
+def proxy_journals(n: int, m: int, seed: int) -> dict:
+    """Phase 7b's journals: 4 MDTs of ``n`` records with scratch files,
+    and ``PROXY_TRAIN_HOSTS`` training hosts of ``m``."""
+    out = {f"mdt{k}": make_journal_arrays(k, n, seed, scratch=True)
+           for k in range(N_MDTS)}
+    out.update({f"host{h}": tracker_arrays(h, m, seed)
+                for h in range(PROXY_TRAIN_HOSTS)})
+    return out
+
+
+def plain_slots(seq, oid, ver) -> np.ndarray:
+    """The slots of target FIDs given as columns, by the kernel's plain
+    version."""
+    from repro_torch.core import records as T
+    from repro_torch.kernels import stream_ops
+    hdr = np.zeros(len(seq), dtype=T.HDR_DTYPE)
+    hdr["tseq"], hdr["toid"], hdr["tver"] = seq, oid, ver
+    rows = torch.from_numpy(hdr.view(np.uint8).reshape(-1, 64))
+    return stream_ops.fid_slots_rows_reference(rows, N_SLOTS).numpy()
+
+
+def journal_columns(records: dict) -> dict:
+    """Each journal's type, tenant (an index into ``TENANTS`` whose
+    ``prefix.`` its jobid starts with, else -1) and FID slot, a row per
+    record, from its records (``journal_records``)."""
+    prefixes = [(k, t.encode() + b".") for k, t in enumerate(TENANTS)]
+    return {pid: {
+        "types": np.array([r.type for r in recs], dtype=np.int64),
+        "tenant": np.array([next((k for k, p in prefixes
+                                  if r.jobid.startswith(p)), -1)
+                            for r in recs], dtype=np.int64),
+        "slot": plain_slots(*(np.array([getattr(r.tfid, f) for r in recs],
+                                       dtype=np.uint64)
+                              for f in ("seq", "oid", "ver")))}
+        for pid, recs in records.items()}
+
+
+class CountingModule:
+    """A stream module that counts the rows it removes and the batches it
+    returns reordered (another batch of the same length), and nothing
+    else: ``module(batch)`` is the wrapped module's output."""
+
+    def __init__(self, module):
+        self.module = module
+        self.removed = 0
+        self.reordered = 0
+
+    def __call__(self, batch):
+        out = self.module(batch)
+        self.removed += len(batch) - len(out)
+        self.reordered += out is not batch and len(out) == len(batch)
+        return out
+
+
+def proxy_chain(pkg) -> list:
+    """The reference test's chain (tests/test_columnar.py), each module
+    counted: every type but CL_CLOSE, heartbeats coalesced, compensating
+    operations cancelled, rows reordered by target."""
+    M, R = pkg.modules, pkg.R
+    return [CountingModule(m) for m in (
+        M.TypeFilter(set(R.TYPE_NAMES) - {R.CL_CLOSE}),
+        M.CoalesceHeartbeats(), M.CancelCompensating(),
+        M.ReorderByTarget())]
+
+
+MODULE_NAMES = ("TypeFilter", "CoalesceHeartbeats", "CancelCompensating",
+                "ReorderByTarget")
+
+
+def tenant_spec(pkg, t: str, **kw):
+    """A subscription of group ``tenant-t``, scoped to jobids ``t.*``."""
+    P = pkg.tenancy.TenantPrincipal
+    return pkg.session.Subscription(
+        group=f"tenant-{t}", tenant=P(t, prefixes=(t.encode() + b".",)),
+        auto_commit=False, **kw)
+
+
+def run_proxy_chain(pkg, records: dict, add_after_quota: bool = True) -> dict:
+    """Phase 7b (a): the whole proxy on the cluster with no thread.  An
+    ``LcapCluster`` of 4 shards, 64 slots and ``proxy_chain``'s modules
+    over every journal of ``records`` (each with a history tier),
+    routing on ``pkg.kw``'s device; groups robinhood (two members),
+    audit (its types), a group for each tenant of ``TENANTS`` scoped to
+    its jobid prefix, and an ephemeral reader.  Tenant ``dd`` has a quota
+    (per shard: the records per MDT over ``QUOTA_DIVISOR`` a clock
+    second, the same burst) on a step clock, one second a round, that
+    replaces ``LcapProxy._now`` on each shard's proxy.  Each journal
+    takes 1/16 of its records a round.  At round 8 (halfway) a shard is
+    added (already there when not ``add_after_quota``: then it joins
+    before the quota is set) and ``PROXY_MOVED_SLOTS`` of shard 0's
+    slots migrate to it while the quota holds.  The quota is lifted
+    once the migration has committed and ``dd`` has parked on the new
+    shard, or ``PROXY_LIFT_WAIT`` rounds after the commit.  Returns the
+    trace (group, member, shard, journal, v2 bytes), the stats and the
+    facts two runs must share."""
+    R, S = pkg.R, pkg.session.Subscription
+    mdt = next(pid for pid in records if pid.startswith("mdt"))
+    n = len(records[mdt])
+    logs = {pid: pkg.llog.Llog(pid, history=True) for pid in records}
+    chain = proxy_chain(pkg)
+    cluster = pkg.cluster.LcapCluster(logs, n_shards=N_SHARDS,
+                                      n_slots=N_SLOTS, batch_size=BATCH,
+                                      modules=chain, **pkg.kw)
+    clock = [0.0]
+
+    def tick(shard: int) -> None:
+        cluster.shards[shard].proxy._now = lambda: clock[0]
+
+    for i in range(len(cluster.shards)):
+        tick(i)
+    added = None
+    if not add_after_quota:
+        added = cluster.add_shard()
+        tick(added)
+    sites = (RoutingSites(cluster) if hasattr(cluster, "_router")
+             else contextlib.nullcontext())
+    session = pkg.session.connect(cluster)
+    audit = frozenset(getattr(R, name) for name in AUDIT)
+    streams = [("robinhood", k, session.subscribe(S(
+        group="robinhood", auto_commit=False))) for k in range(2)]
+    streams.append(("audit", 0, session.subscribe(S(
+        group="audit", types=audit, flags=R.CLF_JOBID, auto_commit=False))))
+    streams += [(f"tenant-{t}", 0, session.subscribe(tenant_spec(pkg, t)))
+                for t in TENANTS]
+    streams.append(("reader", 0, session.subscribe(S(
+        mode=pkg.session.EPHEMERAL, auto_commit=False))))
+    quota = max(1, n // QUOTA_DIVISOR)
+    cluster.set_tenant_quota("dd", records_per_s=quota, burst_records=quota)
+    feed = {pid: -(-len(recs) // PROXY_FEED_ROUNDS)
+            for pid, recs in records.items()}
+    trace = []
+    facts = {"quota": quota, "moved_at": None, "committed_at": None,
+             "lifted_at": None}
+
+    def parked_rounds(shard: int) -> int:
+        acct = cluster.shards[shard].proxy.tenants.get("dd")
+        return 0 if acct is None else acct.quota_blocked_pumps
+
+    with sites:
+        t0 = time.perf_counter()
+        for rnd in range(PROXY_MAX_ROUNDS):
+            clock[0] = float(rnd)
+            if rnd < PROXY_FEED_ROUNDS:
+                for pid, log in logs.items():
+                    log.log_batch(records[pid][rnd * feed[pid]:
+                                               (rnd + 1) * feed[pid]])
+            if rnd == PROXY_FEED_ROUNDS // 2:
+                if added is None:
+                    added = cluster.add_shard()
+                    tick(added)
+                cluster.migrate_slots(
+                    cluster.routing.slots_of(0)[:PROXY_MOVED_SLOTS], added)
+                facts["moved_at"] = rnd
+            if facts["moved_at"] is not None and \
+                    facts["committed_at"] is None and \
+                    cluster._migration is None:
+                facts["committed_at"] = rnd
+            if facts["committed_at"] is not None and \
+                    facts["lifted_at"] is None and (
+                        parked_rounds(added) or
+                        rnd >= facts["committed_at"] + PROXY_LIFT_WAIT):
+                cluster.set_tenant_quota("dd")
+                facts["lifted_at"] = rnd
+            moved = cluster.pump()
+            for group, k, stream in streams:
+                for pid, batch in stream.fetch(1 << 16):
+                    trace.append((group, k, shard_of(stream, batch), pid,
+                                  batch.to_wire(R.WIRE_V2)))
+                    moved += len(batch)
+                stream.commit()
+            if rnd >= PROXY_FEED_ROUNDS and facts["lifted_at"] is not None \
+                    and not moved and idle(cluster):
+                break
+        seconds = time.perf_counter() - t0
+    check(facts["lifted_at"] is not None and idle(cluster),
+          f"proxy (a): the run did not settle in {PROXY_MAX_ROUNDS} rounds")
+    session.close()
+    facts.update(
+        rounds=rnd + 1, added=added,
+        removed={name: m.removed for name, m in zip(MODULE_NAMES, chain)},
+        reordered=chain[-1].reordered,
+        removed_by_shard=[s.proxy.stats["dropped_by_modules"]
+                          for s in cluster.shards],
+        parked_rounds=[parked_rounds(i) for i in range(len(cluster.shards))],
+        reader_drops=sum(s.proxy.stats["ephemeral_drops"]
+                         for s in cluster.shards))
+    out = {"trace": trace, "stats": dict(cluster.stats),
+           "routing": (cluster.routing.epoch, cluster.slot_owner),
+           "journal_acked": dict(cluster.journal_acked), "facts": facts,
+           "seconds": seconds}
+    if hasattr(cluster, "_router"):
+        out["sites"] = {"chunks": sites.total("chunks"),
+                        "launches": sites.total("launches")}
+        out["routing_launches"] = cluster.routing_launches
+        out["routing_reads"] = cluster.routing_reads
+    return out
+
+
+def removable(cols: dict) -> dict:
+    """Which records each module may remove, by type: TypeFilter every
+    CL_CLOSE, CoalesceHeartbeats heartbeats, CancelCompensating the
+    compensating pairs and superseded checkpoint writes."""
+    from repro_torch.core import records as T
+    kinds = {"TypeFilter": (T.CL_CLOSE,),
+             "CoalesceHeartbeats": (T.CL_HEARTBEAT,),
+             "CancelCompensating": (T.CL_CREATE, T.CL_UNLINK, T.CL_MKDIR,
+                                    T.CL_RMDIR, T.CL_CKPT_WRITE)}
+    return {name: {pid: np.isin(c["types"], kinds[name])
+                   for pid, c in cols.items()} for name in kinds}
+
+
+def check_tenants(label: str, counts: dict, rh: dict, cols: dict,
+                  tenants=TENANTS) -> None:
+    """Each tenant group of ``counts`` got, exactly once, robinhood's
+    records (``rh``: delivered at least once) whose jobid is in its
+    scope, and no other record."""
+    for t in tenants:
+        k = TENANTS.index(t)
+        for pid, c in counts[f"tenant-{t}"].items():
+            got, scope = c[1:], cols[pid]["tenant"] == k
+            check(bool((got[~scope] == 0).all()),
+                  f"{label}: tenant {t} got {int((got[~scope] > 0).sum())} "
+                  f"records of {pid} outside its scope")
+            want = (rh[pid][1:] > 0) & scope
+            check(np.array_equal(got, want.astype(np.int64)),
+                  f"{label}: tenant {t} got {int((got > 0).sum())} "
+                  f"records of {pid}, not once each of robinhood's "
+                  f"{int(want.sum())} in its scope")
+
+
+def verify_proxy_chain(run: dict, cols: dict) -> dict:
+    """Phase 7b (a)'s checks on one run: robinhood got each record once
+    or a module removed it (module by module: TypeFilter every CL_CLOSE,
+    and the rest only records of the types they act on), audit
+    robinhood's records of its types, each tenant group robinhood's
+    records in its scope and nothing else (no training record), every
+    module removed rows on the cluster and every shard lost rows to the
+    chain, ``dd`` parked (on the added shard too) and got everything once
+    lifted, and the ephemeral reader nothing twice."""
+    from repro_torch.core import records as T
+    sizes = {pid: len(c["types"]) for pid, c in cols.items()}
+    by_group = {}
+    for group, _k, _shard, pid, wire in run["trace"]:
+        by_group.setdefault(group, []).append(
+            (pid, T.RecordBatch.from_wire(wire).indices_np()))
+    counts = {g: delivery_counts(d, sizes) for g, d in by_group.items()}
+    rh = counts["robinhood"]
+    facts = run["facts"]
+    removed = facts["removed"]
+    total = sum(sizes.values())
+    for pid, c in rh.items():
+        check(bool((c[1:] <= 1).all()), f"proxy (a): robinhood got "
+              f"{int((c[1:] > 1).sum())} records of {pid} twice")
+    delivered = sum(int((c[1:] > 0).sum()) for c in rh.values())
+    check(delivered + sum(removed.values()) == total,
+          f"proxy (a): robinhood got {delivered} records and the modules "
+          f"removed {sum(removed.values())}, not the {total} journaled")
+    check(sum(removed.values()) == sum(facts["removed_by_shard"]),
+          f"proxy (a): the modules counted {removed}, the shards "
+          f"{facts['removed_by_shard']}")
+    kinds = removable(cols)
+    for name, per in kinds.items():
+        gone = sum(int(((rh[pid][1:] == 0) & m).sum())
+                   for pid, m in per.items())
+        check(gone == removed[name], f"proxy (a): {removed[name]} rows "
+              f"removed by {name}, {gone} of its types undelivered")
+    for pid in sizes:
+        acted = np.zeros(sizes[pid], dtype=bool)
+        for per in kinds.values():
+            acted |= per[pid]
+        check(bool((rh[pid][1:][~acted] == 1).all()),
+              f"proxy (a): robinhood missed records of {pid} that no "
+              "module acts on")
+        check(bool((rh[pid][1:][cols[pid]["types"] == T.CL_CLOSE]
+                    == 0).all()), f"proxy (a): a CL_CLOSE of {pid} passed "
+              "the type filter")
+    audit = np.array([getattr(T, name) for name in AUDIT])
+    for pid, c in counts["audit"].items():
+        want = (rh[pid][1:] > 0) & np.isin(cols[pid]["types"], audit)
+        check(np.array_equal(c[1:], want.astype(np.int64)),
+              f"proxy (a): audit's {pid} records are not robinhood's of "
+              "its types, once each")
+    check_tenants("proxy (a)", counts, rh, cols)
+    for name in MODULE_NAMES[:3]:
+        check(removed[name] > 0, f"proxy (a): {name} removed no row")
+    check(facts["reordered"] > 0, "proxy (a): ReorderByTarget reordered no "
+          "batch")
+    check(all(r > 0 for r in facts["removed_by_shard"]),
+          f"proxy (a): a shard lost no row to the modules: "
+          f"{facts['removed_by_shard']}")
+    check(facts["parked_rounds"][facts["added"]] > 0,
+          f"proxy (a): dd never parked on the added shard "
+          f"{facts['added']}: parked rounds {facts['parked_rounds']}")
+    check(facts["committed_at"] is not None and
+          facts["lifted_at"] >= facts["committed_at"],
+          f"proxy (a): the migration and the lift out of order: {facts}")
+    for pid, c in counts.get("reader", {}).items():
+        check(bool((c[1:] <= 1).all()), f"proxy (a): the ephemeral reader "
+              f"got a {pid} record twice")
+    return {"delivered": delivered, "removed": removed,
+            "tenant_records": {t: sum(int(c[1:].sum()) for c in
+                                      counts[f"tenant-{t}"].values())
+                               for t in TENANTS},
+            "reader": sum(int(c[1:].sum())
+                          for c in counts.get("reader", {}).values())}
+
+
+class Progress(threading.Thread):
+    """Samples ``sample()`` every half second into ``samples`` (the
+    deadline's message shows the last ones when a threaded run
+    stalls)."""
+
+    def __init__(self, sample):
+        super().__init__(daemon=True)
+        self.sample = sample
+        self.samples = []
+        self.error = None
+        self._halt = threading.Event()
+
+    def run(self) -> None:
+        t0 = time.perf_counter()
+        while not self._halt.wait(0.5):
+            try:
+                self.samples.append({"s": round(time.perf_counter() - t0,
+                                                1), **self.sample()})
+            except Exception as exc:     # a sample is a view, never fatal
+                self.samples.append({"error": repr(exc)})
+
+    def stop(self) -> None:
+        self._halt.set()
+        self.join(5)
+
+
+class ReplayReads:
+    """Records the thread of every ``ClusterReplayReader.read`` of the
+    cluster module ``cluster_module`` while the context holds: the
+    reference's, whose clusters have no router for ``RoutingSites`` to
+    wrap."""
+
+    def __init__(self, cluster_module):
+        self.module = cluster_module
+        self.threads = set()
+
+    def __enter__(self) -> "ReplayReads":
+        cls = self.module.ClusterReplayReader
+        self._read = read_ = cls.read
+
+        def read(reader, *a, **kw):
+            self.threads.add(threading.current_thread().name)
+            return read_(reader, *a, **kw)
+        cls.read = read
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.module.ClusterReplayReader.read = self._read
+
+
+def run_replay(pkg, records: dict) -> dict:
+    """Phase 7b (b): a replay bootstrap from the shard services' threads
+    while the distributor routes.  An ``LcapClusterService`` of 4 shards
+    with ``proxy_chain``'s modules over the MDT journals of ``records``
+    (each with a history tier), routing on ``pkg.kw``'s device in its
+    distributor thread; a durable robinhood member and the groups of
+    tenants dd and rsync read over ``connect(addresses)`` in threads.
+    A ``Feeder`` streams the first half of every journal; once it is
+    routed and acknowledged, a ``replay=True`` group scoped to tenant
+    cp subscribes over the wire (each shard's handoff watermarks
+    recorded) and drains its bootstrap, each history read hashed on the
+    thread of the shard service that serves it, while a second
+    ``Feeder`` streams the second half and the distributor routes it.
+    No topology change."""
+    from repro_torch.kernels import stream_ops
+    S = pkg.session.Subscription
+    mdts = {pid: recs for pid, recs in records.items()
+            if pid.startswith("mdt")}
+    n = len(next(iter(mdts.values())))
+    half = n // 2
+    logs = {pid: pkg.llog.Llog(pid, history=True) for pid in mdts}
+    cluster = pkg.cluster.LcapCluster(logs, n_shards=N_SHARDS,
+                                      n_slots=N_SLOTS, batch_size=BATCH,
+                                      modules=proxy_chain(pkg), **pkg.kw)
+    svc = pkg.cluster.LcapClusterService(cluster)
+    port = hasattr(cluster, "_router")
+    # the port's replay reads by the threads that hashed their chunks,
+    # the reference's by the threads that called them
+    sites = RoutingSites(cluster) if port else ReplayReads(pkg.cluster)
+    sessions, consumers, hw = [], [], []
+    replay = None
+    out = {}
+
+    def subscribe(spec):
+        # a session (its sockets) to each consumer thread: one
+        # connection carries one request at a time
+        sessions.append(pkg.session.connect(list(svc.addresses)))
+        return sessions[-1].subscribe(spec)
+
+    def sample() -> dict:
+        return {"routed": cluster.stats["routed"],
+                "rounds": cluster.stats["routing_rounds"],
+                "acked": min(cluster.journal_acked.values()),
+                "got": [c.records for c in consumers],
+                "replaying": None if replay is None else replay.replaying}
+
+    progress = Progress(sample)
+    with sites:
+        stream_ops.launches = 0
+        svc.start()
+        progress.start()
+        try:
+            consumers.append(WireConsumer(subscribe(S(
+                group="robinhood", name="rh", auto_commit=False)), keep=True))
+            consumers += [WireConsumer(subscribe(tenant_spec(pkg, t)),
+                                       keep=True) for t in ("dd", "rsync")]
+            for c in consumers:
+                c.start()
+            t0 = time.perf_counter()
+            first = Feeder(logs, mdts, 0, half)
+            first.start()
+            wait_for("proxy (b) first half", lambda: (
+                first.fed == half and all(
+                    cluster.journal_acked[pid] >= half for pid in logs)),
+                [first, *consumers], svc, progress, PROXY_DEADLINE_S)
+            out["first_half_s"] = time.perf_counter() - t0
+            stream = subscribe(tenant_spec(pkg, "cp", replay=True))
+            for shard in cluster.shards:
+                with shard.proxy._lock:
+                    hw.append({pid: w for cons in
+                               shard.proxy.consumers.values()
+                               if cons.group == "tenant-cp"
+                               for pid, w in cons.replay_hw.items()})
+            replay = WireConsumer(stream, rows=True)
+            second = Feeder(logs, mdts, half, n)
+            t1 = time.perf_counter()
+            replay.start()
+            second.start()
+            wait_for("proxy (b) replay and second half", lambda: (
+                second.fed == n - half and not replay.replaying
+                and trimmed(logs) and all(
+                    s.proxy.buffered == 0 for s in cluster.shards)),
+                [second, replay, *consumers], svc, progress,
+                PROXY_DEADLINE_S)
+            out["second_half_s"] = time.perf_counter() - t1
+            for c in consumers + [replay]:
+                c.stop()
+                check(c.error is None, f"proxy (b): a consumer failed: "
+                      f"{c.error!r}")
+        finally:
+            progress.stop()
+            for c in consumers + ([replay] if replay else []):
+                c.stop()
+            for session in sessions:
+                session.close()
+            svc.stop()
+        out["launches"] = stream_ops.launches
+    out.update(
+        records_per_mdt=n, groups={"robinhood": consumers[0].batches,
+                "tenant-dd": consumers[1].batches,
+                "tenant-rsync": consumers[2].batches,
+                "tenant-cp": replay.batches},
+        hw=hw, owner=list(cluster.slot_owner), trimmed=trimmed(logs),
+        failure=getattr(svc, "failure", None), stats=dict(cluster.stats),
+        removed_by_shard=[s.proxy.stats["dropped_by_modules"]
+                          for s in cluster.shards],
+        replayed=stream.replayed, distributor=svc._distributor.name,
+        read_threads=sorted(sites.threads[0]["replay"] if port
+                            else sites.threads),
+        samples=progress.samples[-3:])
+    if port:
+        order = sites.order[0]
+        last_round = max((i for i, s in enumerate(order) if s == "round"),
+                         default=-1)
+        out.update(
+            sites={"chunks": sites.total("chunks"),
+                   "launches": sites.total("launches")},
+            threads={s: sorted(t) for s, t in sites.threads[0].items() if t},
+            replay_before_last_round=order[:last_round].count("replay"),
+            routing_launches=cluster.routing_launches,
+            routing_reads=cluster.routing_reads)
+    return out
+
+
+def verify_replay(run: dict, cols: dict) -> dict:
+    """Phase 7b (b)'s checks on one run: robinhood got each record once
+    or the modules removed it, the tenant groups robinhood's records in
+    their scopes; the replay group no (journal, index) twice, live
+    exactly robinhood's records in its scope above each shard's handoff
+    watermark, every replayed row in its scope and, hashed again by the
+    plain version, on a slot of the shard that served it; replay reads
+    on threads other than the distributor's (the port's: the threads
+    that hashed its replay chunks, of which there are some, while the
+    distributor hashed every routing round); no distributor failure."""
+    n = run["records_per_mdt"]
+    mdts = {pid: {k: v[:n] for k, v in c.items()}
+            for pid, c in cols.items() if pid.startswith("mdt")}
+    sizes = {pid: len(c["types"]) for pid, c in mdts.items()}
+    counts = {g: delivery_counts([(pid, idx) for _s, pid, idx, *_ in b],
+                                 sizes)
+              for g, b in run["groups"].items()}
+    rh = counts["robinhood"]
+    check(run["failure"] is None, f"proxy (b): the distributor failed: "
+          f"{run['failure']!r}")
+    check(run["trimmed"], "proxy (b): a journal did not trim")
+    for pid, c in rh.items():
+        check(bool((c[1:] <= 1).all()), f"proxy (b): robinhood got a {pid} "
+              "record twice")
+    delivered = sum(int((c[1:] > 0).sum()) for c in rh.values())
+    removed = sum(run["removed_by_shard"])
+    check(delivered + removed == sum(sizes.values()),
+          f"proxy (b): robinhood got {delivered} records and the modules "
+          f"removed {removed}, not the {sum(sizes.values())} journaled")
+    check_tenants("proxy (b)", counts, rh, mdts, ("dd", "rsync"))
+    cp = TENANTS.index("cp")
+    owner = np.asarray(run["owner"])
+    live = {pid: np.zeros(n + 1, dtype=np.int64) for pid, n in sizes.items()}
+    replayed = 0
+    for shard, pid, idx, fids, jobids in run["groups"]["tenant-cp"]:
+        w = run["hw"][shard].get(pid, 0)
+        np.add.at(live[pid], idx[idx > w], 1)
+        old = idx <= w
+        if not old.any():
+            continue
+        replayed += int(old.sum())
+        slots = plain_slots(*(col[old] for col in fids))
+        check(bool((owner[slots] == shard).all()),
+              f"proxy (b): shard {shard} replayed rows of slots it does not "
+              "own")
+        check(all(bytes(j[:3]) == b"cp." for j in jobids[old]),
+              "proxy (b): the replay group got a replayed row outside its "
+              "scope")
+    for pid, c in counts["tenant-cp"].items():
+        check(bool((c[1:] <= 1).all()), f"proxy (b): the replay group got "
+              f"{int((c[1:] > 1).sum())} records of {pid} twice")
+        handoff = np.array([w.get(pid, 0) for w in run["hw"]])
+        above = np.arange(1, sizes[pid] + 1) > \
+            handoff[owner[mdts[pid]["slot"]]]
+        want = (rh[pid][1:] > 0) & (mdts[pid]["tenant"] == cp) & above
+        check(np.array_equal(live[pid][1:], want.astype(np.int64)),
+              f"proxy (b): the replay group got {int(live[pid][1:].sum())} "
+              f"live records of {pid}, not once each of the "
+              f"{int(want.sum())} in its scope above the handoff")
+    check(replayed > 0 and replayed == run["replayed"],
+          f"proxy (b): the replay group replayed {replayed} rows, its "
+          f"stream counted {run['replayed']}")
+    dist = run["distributor"]
+    reads = run["read_threads"]
+    check(reads and dist not in reads, f"proxy (b): replay reads by "
+          f"thread {reads}, the distributor is {dist}")
+    if "sites" in run:
+        th = run["threads"]
+        check(run["sites"]["chunks"]["replay"] > 0, "proxy (b): no replay "
+              "chunk was hashed")
+        check(th.get("round") == [dist], f"proxy (b): routing rounds hashed "
+              f"by {th.get('round')}, not the distributor {dist}")
+    return {"delivered": delivered, "removed": removed,
+            "replayed": replayed,
+            "live": sum(int(c[1:].sum()) for c in live.values())}
+
+
+def trace_digest(trace) -> str:
+    """SHA-256 of a trace (``run_proxy_chain``'s): every field of every
+    entry in order, each prefixed by its length."""
+    import hashlib
+    h = hashlib.sha256()
+    for entry in trace:
+        for field in entry:
+            b = field if isinstance(field, bytes) else str(field).encode()
+            h.update(len(b).to_bytes(8, "little"))
+            h.update(b)
+    return h.hexdigest()
+
+
+def proxy_chain_on_cpu(arrays: dict) -> dict:
+    """``run_proxy_chain`` of the port routing on the CPU over the
+    journals ``arrays`` (``proxy_journals``'s: the training hosts' carry
+    the clock's time, so they are made once), held to
+    ``verify_proxy_chain``: the run phase 7b (a) holds the card's against,
+    made in a process of its own meanwhile.  Its trace comes back as
+    ``trace_digest``: the batches themselves would take seconds to cross
+    to the parent."""
+    pkg = port_modules()
+    pkg.kw = {"device": "cpu"}
+    records = {pid: journal_records(pkg.R, a, 0, len(a[1]))
+               for pid, a in arrays.items()}
+    run = run_proxy_chain(pkg, records)
+    verify_proxy_chain(run, journal_columns(records))
+    return dict(run, trace=trace_digest(run["trace"]))
+
+
+def proxy_phase(seed: int, smi: str, main_rate: float) -> dict:
+    """Phase 7b: the whole proxy on the card-routed cluster, (a)
+    ``run_proxy_chain`` on the card and, in a spawned process at the
+    same time, on the CPU (equal byte for byte) and (b) ``run_replay`` on
+    the card, each part's ``fid_slots`` launches counted from 0 and equal
+    to its router's chunks, call site by call site."""
+    with spawn_pool(1) as pool:
+        pool.submit(int)    # the process starts while the journals are made
+        return proxy_parts(seed, smi, main_rate, pool)
+
+
+def proxy_parts(seed: int, smi: str, main_rate: float, pool) -> dict:
+    """``proxy_phase``'s parts, (a)'s run on the CPU in ``pool``."""
+    from repro_torch.kernels import stream_ops
+    pkg = port_modules()
+    n, m = PROXY_RECORDS_PER_MDT, PROXY_TRAIN_RECORDS
+    t0 = time.perf_counter()
+    arrays = proxy_journals(n, m, seed)
+    cpu_run = pool.submit(proxy_chain_on_cpu, arrays)
+    records = {pid: journal_records(pkg.R, a, 0, len(a[1]))
+               for pid, a in arrays.items()}
+    cols = journal_columns(records)
+    total = sum(len(r) for r in records.values())
+    out = {"records_per_mdt": n, "train_records_per_host": m,
+           "records": total, "setup_s": time.perf_counter() - t0}
+    log(f"proxy: {N_MDTS} MDT journals x {n} records (scratch files) and "
+        f"{PROXY_TRAIN_HOSTS} training hosts x {m} generated in "
+        f"{out['setup_s']:.3f} s (not timed below)")
+
+    # (a) the module chain and the tenants, card against CPU
+    t = time.perf_counter()
+    stream_ops.launches = 0
+    card = run_proxy_chain(pkg, records)
+    launches = stream_ops.launches
+    fa = verify_proxy_chain(card, cols)
+    check_launches("proxy (a)", card, launches)
+    cpu = cpu_run.result()
+    ours = dict(card, trace=trace_digest(card["trace"]))
+    for key in ("trace", "stats", "routing", "journal_acked", "facts"):
+        check(ours[key] == cpu[key], f"proxy (a): {key} differs between "
+              "routing on the card and on the CPU")
+    facts = card["facts"]
+    out["chain"] = {
+        "batches": len(card["trace"]), "records_per_s":
+        total / card["seconds"], "main_records_per_s": main_rate,
+        "card_s": card["seconds"], "cpu_s": cpu["seconds"],
+        "removed": facts["removed"],
+        "removed_by_shard": facts["removed_by_shard"],
+        "delivered": fa["delivered"], "tenant_records": fa["tenant_records"],
+        "parked_rounds": facts["parked_rounds"], "added": facts["added"],
+        "quota": facts["quota"], "rounds": facts["rounds"],
+        "moved_at": facts["moved_at"], "committed_at": facts["committed_at"],
+        "lifted_at": facts["lifted_at"], "reader": fa["reader"],
+        "reader_drops": facts["reader_drops"], "stats": card["stats"],
+        "launches": launches, "routing_reads": card["routing_reads"],
+        "launches_by_site": card["sites"]["launches"],
+        "seconds": time.perf_counter() - t}
+    c = out["chain"]
+    log(f"proxy (a) module chain + tenants, card vs CPU: {c['batches']} "
+        f"batches (equal SHA-256), stats, epoch, owners and journal acks "
+        f"equal; {total} records, {c['records_per_s']:.1f} records/s on the "
+        f"card (phase 4: {main_rate:.1f}), card run {c['card_s']:.3f} s, CPU "
+        f"run {c['cpu_s']:.3f} s [{smi}]")
+    log(f"proxy (a): removed by module {c['removed']}, by shard "
+        f"{c['removed_by_shard']}; robinhood {c['delivered']} + removed = "
+        f"every record once; tenants {c['tenant_records']}, no record out "
+        f"of scope; dd's quota {c['quota']}/s parked rounds by shard "
+        f"{c['parked_rounds']} (shard {c['added']} added at round "
+        f"{c['moved_at']}, migration committed at {c['committed_at']}, "
+        f"quota lifted at {c['lifted_at']}, {c['rounds']} rounds); "
+        f"fid_slots launches {launches} = routing chunks by site "
+        f"{c['launches_by_site']}")
+    del card, cpu
+
+    # (b) replay from the shard services' threads while the distributor
+    # routes
+    t = time.perf_counter()
+    b = run_replay(pkg, {pid: recs[:PROXY_REPLAY_RECORDS_PER_MDT]
+                         for pid, recs in records.items()})
+    fb = verify_replay(b, cols)
+    check_launches("proxy (b)", b, b["launches"])
+    check(b["replay_before_last_round"] > 0, "proxy (b): every replay chunk "
+          "was hashed after the distributor's last routing chunk: the "
+          "bootstrap did not overlap routing")
+    out["replay"] = {
+        "replayed": fb["replayed"], "live": fb["live"],
+        "delivered": fb["delivered"], "removed": fb["removed"],
+        "first_half_s": b["first_half_s"],
+        "second_half_s": b["second_half_s"],
+        "records_per_mdt": PROXY_REPLAY_RECORDS_PER_MDT,
+        "records_per_s": N_MDTS * (PROXY_REPLAY_RECORDS_PER_MDT -
+                                   PROXY_REPLAY_RECORDS_PER_MDT // 2)
+        / b["second_half_s"],
+        "replay_threads": b["threads"].get("replay"),
+        "distributor": b["distributor"],
+        "replay_chunks_before_last_round": b["replay_before_last_round"],
+        "launches": b["launches"], "routing_reads": b["routing_reads"],
+        "launches_by_site": b["sites"]["launches"],
+        "seconds": time.perf_counter() - t}
+    r = out["replay"]
+    log(f"proxy (b) replay bootstrap of tenant cp over the wire: "
+        f"{r['replayed']} rows replayed, hashed on {r['replay_threads']} "
+        f"(the distributor is {r['distributor']}), {r['live']} live, no "
+        f"(journal, index) twice; {r['replay_chunks_before_last_round']} "
+        f"replay chunks hashed before the distributor's last routing chunk; "
+        f"second half {r['records_per_s']:.1f} records/s; fid_slots "
+        f"launches {r['launches']} = routing chunks by site "
+        f"{r['launches_by_site']} [{smi}]")
+    out["launches"] = {"chain": out["chain"]["launches"],
+                       "replay": out["replay"]["launches"],
+                       "replay_by_site": out["replay"]["launches_by_site"]}
     return out
 
 # ------------------------------------------------- phase 3: flash attention
@@ -5114,15 +5977,26 @@ def mesh_phase(seed: int, smi: str, sv: dict, tr: dict) -> dict:
 
 
 # ---------------------------------------------- phase 14: the cost models
-def dryrun_cell(arch: str, shape: str, full: bool, probes: bool,
-                coarse: bool, total_b: int, smi: str) -> dict:
-    """One cell of the port's dry run on the fake 16x16 mesh, its record
-    and the lines it prints."""
+def dryrun_records(cells) -> list:
+    """``launch.dryrun.run_cell``'s records of ``cells`` (rows of
+    ``DRYRUN_CELLS``) on the fake 16x16 mesh, in the cells' order, traced
+    by ``DRYRUN_WORKERS`` processes at once, which end with the call."""
     import tempfile
     from repro_torch.launch import dryrun as D
-    with tempfile.TemporaryDirectory() as d:
-        r = D.run_cell(arch, shape, "single", d, device="cuda", full=full,
-                       probes=probes, coarse=coarse)
+    with tempfile.TemporaryDirectory() as d, \
+            spawn_pool(DRYRUN_WORKERS) as pool:
+        futures = [pool.submit(D.run_cell, arch, shape, "single", d,
+                               device="cuda", full=full, probes=probes,
+                               coarse=coarse)
+                   for arch, shape, full, probes, coarse in cells]
+        return [f.result() for f in futures]
+
+
+def dryrun_cell(r: dict, full: bool, probes: bool, total_b: int,
+                smi: str) -> dict:
+    """One cell of the port's dry run from its record ``r``
+    (``dryrun_records``), checked, and the line it prints."""
+    arch, shape = r["arch"], r["shape"]
     check(r["status"] == "ok", f"roofline: dry run of {arch} {shape}: "
           f"{r['status']} {r.get('reason', '')}")
     out = {k: r[k] for k in (
@@ -5231,8 +6105,9 @@ def roofline_phase(smi: str, measured: dict) -> dict:
     total_b = torch.cuda.get_device_properties(0).total_memory
     out = {"cells": []}
     t0 = time.perf_counter()
-    for arch, shape, full, probes, coarse in DRYRUN_CELLS:
-        cell = dryrun_cell(arch, shape, full, probes, coarse, total_b, smi)
+    records = dryrun_records(DRYRUN_CELLS)
+    for (arch, shape, full, probes, _c), r in zip(DRYRUN_CELLS, records):
+        cell = dryrun_cell(r, full, probes, total_b, smi)
         if full and probes:
             check(cell["probe_flops_rel_err"] <= DRYRUN_PROBE_TOL,
                   f"roofline: {arch} {shape}: the probe model's FLOPs are "
@@ -5348,6 +6223,7 @@ def main() -> int:
     wire = timed("wire", wire_phase, args.seed, smi)
     act = timed("activity", activity_phase, args.seed, smi)
     el = timed("elastic", elastic_phase, args.seed, smi)
+    px = timed("proxy", proxy_phase, args.seed, smi, main["records_per_s"])
     tr = timed("train", train_phase, args.seed, smi)
     trf = {tag: timed(tag, train_family_phase, C.get_config(arch), tag,
                       args.seed, smi, **kw)
@@ -5388,6 +6264,8 @@ def main() -> int:
         "activity_launches": act["launches"],
         # phase 7a's four parts, each counted from 0
         "elastic_launches": el["launches"],
+        # phase 7b's two parts, each counted from 0; (b)'s by call site
+        "proxy_launches": px["launches"],
         "train_launches": tr["launches"]["fid_slots"],
         "train_families_launches": {
             tag: r["launches_by_kernel"]["fid_slots"]
@@ -5488,6 +6366,7 @@ def main() -> int:
     print(json.dumps({"wire": wire}), flush=True)
     print(json.dumps({"activity": act}), flush=True)
     print(json.dumps({"elastic": el}), flush=True)
+    print(json.dumps({"proxy": px}), flush=True)
     print(json.dumps({"train": tr}), flush=True)
     print(json.dumps({"moe": mo}), flush=True)
     print(json.dumps({"ssm": sm}), flush=True)

@@ -501,6 +501,9 @@ class LcapCluster:
         self._router = SlotRouter(self.device)
         self._modules = list(modules or [])
         self._proxy_defaults = dict(proxy_kwargs)
+        #: tenant -> the keywords of its last ``set_tenant_quota``, which
+        #: ``add_shard`` installs on every shard that joins later
+        self._quotas: Dict[str, dict] = {}
         if shards is None:
             shards = [LocalShard(LcapProxy({}, modules=list(self._modules),
                                            batch_size=batch_size,
@@ -852,6 +855,7 @@ class LcapCluster:
         shard (or an explicit handle) joins with zero slots and owes
         nothing routed before it joined — its push sources start at the
         current cursors, so it never holds the collective ack back.
+        An in-process shard gets every tenant quota set so far.
         The epoch bumps so live consumers discover the wider shard set;
         records land on it once slots are migrated over
         (``migrate_slots`` / ``split_shard``)."""
@@ -879,6 +883,8 @@ class LcapCluster:
             if obs is not None and proxy is not None:
                 proxy.attach_registry(obs, {"shard": str(i)})
             if proxy is not None:
+                for tenant, kw in self._quotas.items():
+                    proxy.set_tenant_quota(tenant, **kw)
                 # replicate group registrations: records routed to the
                 # new shard park in each group's pending backlog until
                 # that group's fan-in stream discovers the shard (epoch
@@ -1128,10 +1134,15 @@ class LcapCluster:
 
     def set_tenant_quota(self, tenant: str, **kw) -> None:
         """Install per-tenant delivery token buckets on every live
-        in-process shard (see ``LcapProxy.set_tenant_quota``).  The
-        rates apply *per shard* — a cluster-wide budget divides by the
-        shard count at the caller."""
+        in-process shard (see ``LcapProxy.set_tenant_quota``), and on
+        every shard ``add_shard`` adds later; a call without rates clears
+        them.  The rates apply *per shard* — a cluster-wide budget
+        divides by the shard count at the caller."""
         with self._lock:
+            if kw.get("records_per_s") or kw.get("bytes_per_s"):
+                self._quotas[tenant] = dict(kw)
+            else:
+                self._quotas.pop(tenant, None)
             for i, shard in enumerate(self.shards):
                 proxy = getattr(shard, "proxy", None)
                 if self.alive[i] and proxy is not None:

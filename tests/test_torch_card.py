@@ -19,7 +19,9 @@ with a prefill one token longer within 0.12 (phase 12a).  The activity
 consumers of ``chip_smoke.py``'s phase 7 over a cluster routing on the
 card must end in the state they reach over one routing on the CPU, so
 must phase 7a's elastic scenario and two-filesystem federation (the
-same deliveries, stats and cursors, every routing chunk one launch), a
+same deliveries, stats and cursors, every routing chunk one launch), so
+must phase 7b's module chain with tenant groups and a quota that parks
+through a shard added and migrated to, a
 training step on the card must agree with the same step on the CPU
 (phase 8, and phases 8a-8c's families, whisper-small with its frames),
 phases 8a-8c's helper must pass its checks at smoke size with no kernel
@@ -426,6 +428,35 @@ def test_federation_on_the_card_like_on_the_cpu(card):
     assert gpu["cursor"] == cpu["cursor"] == gpu["last"]
     assert gpu["stats"] == cpu["stats"]
     assert launched == gpu["routing_launches"] > 0 and none == 0
+
+
+def test_proxy_chain_on_the_card_like_on_the_cpu(card):
+    """chip_smoke.py's phase 7b (a) at 4 x 4096 MDT records and 2 x 1024
+    training records: the four stream modules, audit, four tenant groups
+    and tenant dd's quota, parked and lifted around a shard added and
+    migrated to, deliver byte for byte the same with routing on the card
+    as on the CPU, with the same stats, epoch, owners, journal acks and
+    facts; every routing chunk of the card's run, at every call site, is
+    one kernel launch."""
+    smoke = load_smoke()
+    journals = smoke.proxy_journals(4096, 1024, 2)
+    runs = []
+    for device in ("cuda", "cpu"):
+        pkg = smoke.port_modules()
+        pkg.kw = {"device": device}
+        records = {pid: smoke.journal_records(pkg.R, j, 0, len(j[1]))
+                   for pid, j in journals.items()}
+        before = stream_ops.launches
+        run = smoke.run_proxy_chain(pkg, records)
+        runs.append((run, stream_ops.launches - before))
+    cols = smoke.journal_columns(records)
+    (gpu, launched), (cpu, none) = runs
+    for run in (gpu, cpu):
+        smoke.verify_proxy_chain(run, cols)
+    for key in ("trace", "stats", "routing", "journal_acked", "facts"):
+        assert gpu[key] == cpu[key], key
+    assert launched == gpu["routing_launches"] > 0 and none == 0
+    assert gpu["sites"]["launches"] == gpu["sites"]["chunks"]
 
 
 TRAIN_ARCHS = ["starcoder2-3b", "granite-moe-1b-a400m", "mamba2-780m",

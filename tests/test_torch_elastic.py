@@ -269,7 +269,7 @@ def test_a_topology_change_is_not_starved_by_a_busy_routing_loop(journals):
     try:
         stream = session.subscribe(Subscription(group="g", name="m",
                                                 auto_commit=False))
-        consumer = smoke.ChurnConsumer(stream, {pid: n for pid in logs})
+        consumer = smoke.WireConsumer(stream, {pid: n for pid in logs})
         consumer.start()
         feeder = smoke.Feeder(logs, recs, 0, n)
         feeder.start()
