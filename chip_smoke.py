@@ -43,9 +43,16 @@ Phases, in order; any failed check exits nonzero and prints no result:
             tensors as a yardstick (the port never calls it; with
             gemma2's softcap, ``flex_attention`` compiled with the cap
             as its score_mod, and SDPA without the cap beside it); the
-            CUDA-core kernel also checked and timed in float32 at phase
-            5's shape, against SDPA in float32 and its bound at the
-            card's float32 CUDA-core rate;
+            CUDA-core kernel also checked at its tile edges in float32
+            and bf16 (``FLASH_SIMT_EDGE``: head_dims 1 to 256, lengths 1
+            to 1000, Sq != Sk, GQA 8:1, windows ending inside a kv tile,
+            the softcap, rows with nothing visible), in bf16 at head_dim
+            72 through the wrapper (``kernel_for``'s CUDA-core branch,
+            launches counted by the wrapper and on the card), its SASS
+            counted by opcode, and checked and timed in float32 at the
+            shapes of phases 5, 9 and 11 (head_dims 128, 64 and 160),
+            against SDPA in float32 and its bound at the card's float32
+            CUDA-core rate;
 4. main     the sharded changelog pipeline end to end: 4 MDT journals x
             262,144 records routed by ``LcapCluster(device="cuda")`` to
             4 shards, two consumer groups and an ephemeral reader
@@ -105,9 +112,12 @@ Phases, in order; any failed check exits nonzero and prints no result:
             over ``connect(addresses)`` never restarted, a steady window
             streamed 256 records a journal at a time, then a churn
             window under seeded ``migrate_slots``, one
-            ``service.add_shard()`` and a split through the service;
-            both windows exactly once, journals trimmed, an epoch bump
-            seen per migration and per shard added, records parked;
+            ``service.add_shard()`` and a split through the service, the
+            window's first migration taken with the consumer held and
+            records still to come, so that the stream parks records for
+            it whatever the host's speed; both windows exactly once,
+            journals trimmed, an epoch bump seen per migration and per
+            shard added, records parked;
             records/s of each window and their ratio beside the
             reference's gate of 0.5 (not held); (b) phase 6b's four shard
             daemons with a wire ``mirror`` group, one daemon SIGKILLed
@@ -361,11 +371,14 @@ ACTIVITY_RECORDS_PER_MDT = 65_536
 ACTIVITY_DEADLINE_S = 400.0
 ACTIVITY_WINDOW_NS = 1_000_000
 #: phase 7a: records per MDT journal in each part (a window of (a)),
-#: records appended to a journal at a time by (a)'s feeder, the parking
-#: bound of (c), its time limit, and the reference's own churn gate
-#: (``benchmarks/bench_elastic.py``), printed beside the ratio, not held
+#: records appended to a journal at a time by (a)'s feeder, the share of
+#: (a)'s churn window fed before its first migration (an eighth), the
+#: parking bound of (c), its time limit, and the reference's own churn
+#: gate (``benchmarks/bench_elastic.py``), printed beside the ratio, not
+#: held
 ELASTIC_RECORDS_PER_MDT = 65_536
 ELASTIC_FEED_CHUNK = 256
+ELASTIC_FIRST_MIGRATION_AT = 8
 ELASTIC_PARK_CAP = 16_384
 ELASTIC_DEADLINE_S = 300.0
 CHURN_GATE = 0.5
@@ -458,6 +471,29 @@ FLASH_GEMMA_GLOBAL = ((2, 8192, 8192, 16, 8, 224), "bfloat16", True, 0,
 FLASH_QWEN = ((4, 2048, 2048, 40, 8, 128), "bfloat16", True, 0, 0.0)
 FLASH_DENSE = [FLASH_GEMMA, FLASH_GEMMA_GLOBAL, FLASH_QWEN]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: the CUDA-core kernel's tile edges, in float32 and bf16: head_dims 1,
+#: 4, 36, 100, 200 and 256 (every instance, both staging routes), lengths
+#: 1, 63, 65, 129 and 1000 (under, at and past its 64-row kv and 64- or
+#: 128-row q tiles), Sq != Sk causal and not, GQA 8:1, windows of 100 and
+#: 200 that end inside a kv tile, the softcap (q times CAP_Q_SCALE), and
+#: rows with nothing visible (window 5 over 65 keys: q >= 69)
+FLASH_SIMT_GEOMETRY = [
+    ((1, 1, 1, 2, 1, 1), True, 0, 0.0),
+    ((2, 63, 65, 8, 1, 4), True, 0, 0.0),
+    ((1, 65, 63, 4, 2, 36), False, 0, 0.0),
+    ((1, 129, 1000, 8, 1, 100), False, 0, 0.0),
+    ((1, 1000, 129, 4, 1, 200), True, 0, 0.0),
+    ((1, 1000, 1000, 2, 1, 256), True, 100, 0.0),
+    ((1, 129, 129, 4, 4, 100), True, 0, 30.0),
+    ((1, 129, 65, 4, 1, 36), True, 5, 0.0),
+    ((1, 1000, 1000, 8, 1, 64), True, 200, 50.0),
+    ((2, 65, 1000, 4, 2, 1), False, 0, 0.0)]
+FLASH_SIMT_EDGE = [(shape, dtype, causal, window, cap)
+                   for shape, causal, window, cap in FLASH_SIMT_GEOMETRY
+                   for dtype in ("float32", "bfloat16")]
+#: bf16 at a head_dim that is not a multiple of 16: through the wrapper,
+#: kernel_for sends it to the CUDA-core kernel
+FLASH_BF16_ODD = ((2, 129, 129, 4, 2, 72), "bfloat16", True, 0, 0.0)
 #: q's scale in the cases with a softcap: scores of N(0, 1) inputs stay
 #: near 1, where a cap of 20 or 50 moves them by under 1e-2, and a
 #: kernel without the cap would pass; at 24 they reach tens, the cap
@@ -472,6 +508,13 @@ FLASH_MAIN = ((SERVE_B, SERVE_P, SERVE_P, 32, 8, 128), "bfloat16", True, 0,
 #: the same shape in float32: the CUDA-core kernel's own regime (the
 #: wgmma kernel takes bf16 only), checked and timed in phase 3
 FLASH_MAIN_F32 = (FLASH_MAIN[0], "float32", True, 0, 0.0)
+#: the CUDA-core kernel's other instances in float32: qwen3-moe's shape
+#: (head_dim 64) and pixtral-12b's (head_dim 160, the 256-wide instance)
+FLASH_MOE_F32 = (FLASH_MOE[0], "float32", True, 0, 0.0)
+FLASH_VLM_F32 = (FLASH_VLM[0], "float32", True, 0, 0.0)
+FLASH_F32_TIMED = {"simt_float32": FLASH_MAIN_F32,
+                   "simt_float32_moe": FLASH_MOE_F32,
+                   "simt_float32_vlm": FLASH_VLM_F32}
 #: calls of the launcher timed after each serving phase's first: the
 #: phase's prefill ms and decode ms a step are their medians (phase 14's
 #: one-card shares read them), the first call's numbers kept beside them
@@ -710,10 +753,15 @@ def fid_slots_bound_ms(n: int) -> tuple:
                                                           "operations")
 
 
+#: opcodes ``sass_counts`` counts one by one
+SASS_OPS = ("FFMA", "LDS", "STS", "SHFL", "MUFU", "LDGSTS")
+
+
 def sass_counts(lib) -> dict:
     """SASS instructions of each function in a built library, by
     ``cuobjdump -sass`` (NOPs left out): {function: {"instructions",
-    "loads" (LDG), "calls" (CALL)}}."""
+    "loads" (LDG), "calls" (CALL), and by opcode "ffma", "lds" (shared
+    loads), "sts", "shfl", "mufu", "ldgsts" (cp.async)}}."""
     import re
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc()).with_name("cuobjdump")
@@ -725,16 +773,20 @@ def sass_counts(lib) -> dict:
         head = re.match(r"\s*Function : (\S+)", line)
         if head:
             name = head.group(1)
-            counts[name] = {"instructions": 0, "loads": 0, "calls": 0}
+            counts[name] = {"instructions": 0, "loads": 0, "calls": 0,
+                            **{op.lower(): 0 for op in SASS_OPS}}
             continue
         ins = re.match(
-            r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)", line)
+            r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)", line)
         if name is None or not ins or ins.group(1).startswith("NOP"):
             continue
         op = ins.group(1)
         counts[name]["instructions"] += 1
         counts[name]["loads"] += op.startswith("LDG")
         counts[name]["calls"] += op.startswith("CALL")
+        base = op.split(".")[0]
+        if base in SASS_OPS:
+            counts[name][base.lower()] += 1
     return counts
 
 
@@ -2517,7 +2569,8 @@ class WireConsumer(threading.Thread):
     ``keep`` it keeps each batch's shard, journal and indices, and with
     ``rows`` the batch's target FIDs and jobids' first 8 bytes too.  It
     keeps every routing epoch its stream moved to, and follows the
-    stream's ``replaying`` until the bootstrap ends."""
+    stream's ``replaying`` until the bootstrap ends.  ``hold`` stops its
+    fetching (and so its acks) until ``release``."""
 
     def __init__(self, stream, sizes: dict | None = None,
                  keep: bool = False, rows: bool = False):
@@ -2531,6 +2584,8 @@ class WireConsumer(threading.Thread):
         self.replaying = stream.replaying
         self.error = None
         self._halt = threading.Event()
+        self._go = threading.Event()
+        self._go.set()
 
     @property
     def epoch(self) -> int:
@@ -2551,9 +2606,17 @@ class WireConsumer(threading.Thread):
             self.batches.append(entry)
         return len(idx)
 
+    def hold(self) -> None:
+        self._go.clear()
+
+    def release(self) -> None:
+        self._go.set()
+
     def run(self) -> None:
         try:
             while not self._halt.is_set():
+                if not self._go.wait(0.01):
+                    continue
                 got = sum(self._take(pid, batch)
                           for pid, batch in self.stream.fetch(1 << 16))
                 self.stream.commit()
@@ -2574,17 +2637,26 @@ class WireConsumer(threading.Thread):
 class Feeder(threading.Thread):
     """Appends records ``lo + 1 .. hi`` to every journal,
     ``ELASTIC_FEED_CHUNK`` a journal at a time, yielding between chunks
-    (a stream, not a pre-filled backlog)."""
+    (a stream, not a pre-filled backlog).  With ``gate_at`` it stops
+    once it has fed that many records a journal, until ``gate`` is
+    set."""
 
-    def __init__(self, logs: dict, records: dict, lo: int, hi: int):
+    def __init__(self, logs: dict, records: dict, lo: int, hi: int,
+                 gate_at: int | None = None):
         super().__init__(daemon=True)
         self.logs, self.records, self.lo, self.hi = logs, records, lo, hi
+        self.gate_at, self.gate = gate_at, threading.Event()
         self.fed = 0
         self.error = None
 
     def run(self) -> None:
         try:
             for a in range(self.lo, self.hi, ELASTIC_FEED_CHUNK):
+                if self.gate_at is not None and \
+                        a - self.lo >= self.gate_at:
+                    if not self.gate.wait(ELASTIC_DEADLINE_S):
+                        raise RuntimeError("the feeder's gate stayed shut "
+                                           f"for {ELASTIC_DEADLINE_S} s")
                 b = min(self.hi, a + ELASTIC_FEED_CHUNK)
                 for pid, log in self.logs.items():
                     log.log_batch(self.records[pid][a:b])
@@ -2601,7 +2673,13 @@ class ChurnStorm(threading.Thread):
     epoch; at half the window (after one such migration at least) one
     ``service.add_shard()`` and a migration onto the new shard; at three
     quarters a split through the service: ``service.add_shard()``, then
-    half of the most-loaded shard's slots onto it."""
+    half of the most-loaded shard's slots onto it.
+
+    The first migration is taken so that records must park for it
+    (``_park_first``): the caller holds the consumer and starts the
+    feeder with a gate.  Left to the threads' timing, a feeder that ran
+    ahead of the storm's first change let the routing loop read the
+    whole window before any migration began, and nothing parked."""
 
     def __init__(self, svc, consumer, feeder, rng, window: int):
         super().__init__(daemon=True)
@@ -2609,8 +2687,67 @@ class ChurnStorm(threading.Thread):
         self.rng, self.window = rng, window
         self.migrations = self.added = 0
         self.split = None
+        self.hold_s = None
         self.error = None
         self._halt = threading.Event()
+
+    def _wait(self, what: str, cond) -> bool:
+        """Poll ``cond``; False if the storm is stopped first."""
+        deadline = time.perf_counter() + ELASTIC_DEADLINE_S
+        while not cond():
+            if self._halt.is_set():
+                return False
+            if time.perf_counter() >= deadline:
+                raise RuntimeError(f"the storm waited {ELASTIC_DEADLINE_S} "
+                                   f"s for {what}")
+            time.sleep(0.002)
+        return True
+
+    def _park_first(self) -> bool:
+        """The window's first migration, with records parked for it.
+        The feeder waits at its gate and the consumer is held: once the
+        routing loop has read all that was fed, half of a random shard's
+        slots start to drain, and the migration cannot commit while that
+        shard's share stays unacknowledged.  Then the feeder goes on, and
+        the consumer is released once the routing loop has parked records
+        of the draining slots.  False if the storm is stopped first."""
+        c, f = self.svc.cluster, self.feeder
+        t0 = time.perf_counter()
+        try:
+            if not self._wait("the feeder's gate", lambda: (
+                    f.fed >= f.gate_at and
+                    all(c.cursors[pid] > log.last_index
+                        for pid, log in f.logs.items()))):
+                return False
+            self._migrate(None, None)
+            if c._migration is None:
+                raise RuntimeError("the first migration committed at once "
+                                   "although the consumer was held")
+            f.gate.set()
+            return self._wait("records to park",
+                              lambda: c.stats["parked_records"] > 0)
+        finally:
+            f.gate.set()
+            self.consumer.release()
+            self.hold_s = time.perf_counter() - t0
+
+    def _migrate(self, dst, src) -> None:
+        """Half of ``src``'s slots (a random owner, or ``"most
+        loaded"``) onto ``dst`` (a random other live shard if None)."""
+        c = self.svc.cluster
+        live = [i for i in range(len(c.shards)) if c.alive[i]]
+        counts = c.routing.counts(len(c.shards))
+        owners = [i for i in live if counts[i] > 0 and i != dst]
+        if src == "most loaded":
+            src = max(owners, key=lambda i: counts[i])
+            self.split = (src, dst)
+        else:
+            src = self.rng.choice(owners)
+        if dst is None:
+            dst = self.rng.choice([i for i in live if i != src])
+        slots = c.routing.slots_of(src)
+        c.migrate_slots(slots[:max(1, len(slots) // 2)], dst)
+        self.migrations += 1
 
     def _settled(self) -> bool:
         """Wait for the last change to commit and reach the consumer."""
@@ -2628,7 +2765,8 @@ class ChurnStorm(threading.Thread):
 
     def run(self) -> None:
         try:
-            c = self.svc.cluster
+            if not self._park_first():
+                return
             while self._settled():
                 fed = self.feeder.fed
                 if not self.added and self.migrations and \
@@ -2640,19 +2778,7 @@ class ChurnStorm(threading.Thread):
                     dst = src = None
                 if dst is not None and not self._settled():
                     break
-                live = [i for i in range(len(c.shards)) if c.alive[i]]
-                counts = c.routing.counts(len(c.shards))
-                owners = [i for i in live if counts[i] > 0 and i != dst]
-                if src == "most loaded":
-                    src = max(owners, key=lambda i: counts[i])
-                    self.split = (src, dst)
-                else:
-                    src = self.rng.choice(owners)
-                if dst is None:
-                    dst = self.rng.choice([i for i in live if i != src])
-                slots = c.routing.slots_of(src)
-                c.migrate_slots(slots[:max(1, len(slots) // 2)], dst)
-                self.migrations += 1
+                self._migrate(dst, src)
                 time.sleep(0.005)
         except BaseException as exc:
             self.error = exc
@@ -2690,8 +2816,11 @@ def run_churn(records: dict, device, seed: int) -> dict:
     wire ``FanInStream`` that finds new shards by the epoch its replies
     carry and the ``topology`` verb), never restarted.  A steady window
     streams records 1 .. n of every journal, a churn window n + 1 .. 2n
-    while ``ChurnStorm`` runs (seeded).  Each window lasts until the
-    consumer holds all its records and the storm has split a shard."""
+    while ``ChurnStorm`` runs (seeded): the consumer is held and the
+    feeder stops at an eighth of the window until the storm's first
+    migration is in flight (``ChurnStorm._park_first``).  Each window
+    lasts until the consumer holds all its records and the storm has
+    split a shard."""
     import random
     from repro_torch.core.cluster import LcapCluster, LcapClusterService
     from repro_torch.core.llog import Llog
@@ -2717,9 +2846,13 @@ def run_churn(records: dict, device, seed: int) -> dict:
             consumer.start()
             for name, lo in (("steady", 0), ("churn", n)):
                 want = consumer.unique + n * len(logs)
-                feeder = Feeder(logs, records, lo, lo + n)
-                storm = (ChurnStorm(svc, consumer, feeder, rng, n)
-                         if name == "churn" else None)
+                churn = name == "churn"
+                feeder = Feeder(logs, records, lo, lo + n, gate_at=(
+                    n // ELASTIC_FIRST_MIGRATION_AT if churn else None))
+                storm = ChurnStorm(svc, consumer, feeder, rng, n) \
+                    if churn else None
+                if storm:
+                    consumer.hold()
                 threads = [t for t in (feeder, storm, consumer) if t]
                 t0 = time.perf_counter()
                 feeder.start()
@@ -2738,7 +2871,8 @@ def run_churn(records: dict, device, seed: int) -> dict:
                     check(storm.error is None, f"elastic (a): the storm "
                           f"failed: {storm.error!r}")
                     out.update(storm_migrations=storm.migrations,
-                               storm_added=storm.added, split=storm.split)
+                               storm_added=storm.added, split=storm.split,
+                               hold_s=storm.hold_s)
                 out["windows"][name] = {
                     "records": n * len(logs), "seconds": seconds,
                     "records_per_s": n * len(logs) / seconds}
@@ -3001,6 +3135,7 @@ def elastic_phase(seed: int, smi: str) -> dict:
         "epoch_bumps": st["epoch_bumps"],
         "epoch_bumps_seen": fa["epoch_bumps_seen"],
         "parked_records": st["parked_records"],
+        "first_migration_hold_s": a["hold_s"],
         "launches": a["launches"], "routing_reads": a["routing_reads"],
         "launches_by_site": a["sites"]["launches"],
         "migration_reads": a["sites"]["launches"]["migration"],
@@ -3014,7 +3149,9 @@ def elastic_phase(seed: int, smi: str) -> dict:
         f"{c['migrations_completed']} completed, {c['shards_added']} shards "
         f"added (split {a['split'][0]} -> {a['split'][1]}), "
         f"{c['epoch_bumps']} epoch bumps, {c['epoch_bumps_seen']} seen by the "
-        f"wire consumer, {c['parked_records']} records parked; fid_slots "
+        f"wire consumer, {c['parked_records']} records parked (the "
+        f"consumer held {c['first_migration_hold_s']:.3f} s for the first "
+        f"migration); fid_slots "
         f"launches {c['launches']} = routing chunks, of them "
         f"{c['migration_reads']} one read a launch in the migration branch "
         f"(routing reads {c['routing_reads']}); exactly once over "
@@ -3865,12 +4002,24 @@ def flash_qkv(case, seed: int, dev):
     return q.to(dt), k.to(dt), v.to(dt)
 
 
-def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
-    """(q, k) pairs the mask leaves visible, per batch and head."""
+def visible_span(Sq: int, Sk: int, causal: bool, window: int) -> tuple:
+    """The first and last key each query row sees (last < first: none)."""
     q = np.arange(Sq)
     hi = np.minimum(q, Sk - 1) if causal else np.full(Sq, Sk - 1)
     lo = np.maximum(q - window + 1, 0) if window else np.zeros(Sq, int)
+    return lo, hi
+
+
+def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(q, k) pairs the mask leaves visible, per batch and head."""
+    lo, hi = visible_span(Sq, Sk, causal, window)
     return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def masked_rows(Sq: int, Sk: int, causal: bool, window: int) -> np.ndarray:
+    """The query rows that see no key at all (their output must be 0)."""
+    lo, hi = visible_span(Sq, Sk, causal, window)
+    return np.flatnonzero(hi < lo)
 
 
 def flash_bound_ms(case) -> tuple:
@@ -3926,9 +4075,10 @@ def flash_check(kernel: str, case, seed: int, dev) -> float:
     check(bad == 0 and bool(torch.isfinite(got).all()),
           f"{kernel} differs from its plain version at {case}: "
           f"{bad} elements beyond rtol=atol={tol}, max |err| {worst}")
-    if shape == (1, 64, 16, 2, 1, 32):
-        check(bool((got[:, 20:] == 0).all()),
-              f"{kernel}: fully masked rows are not 0")
+    empty = torch.as_tensor(masked_rows(shape[1], shape[2], causal, window),
+                            device=dev)
+    check(bool((got[:, empty] == 0).all()),
+          f"{kernel}: rows with nothing visible are not 0 at {case}")
     caught = {}
     for what, kw in (("cap", {"cap": 0.0}), ("window", {"window": 0})):
         if not (cap if what == "cap" else window):
@@ -3943,12 +4093,48 @@ def flash_check(kernel: str, case, seed: int, dev) -> float:
     return worst, caught
 
 
-def flash_phase(seed: int) -> dict:
+def flash_wrapper_check(case, seed: int, dev) -> float:
+    """``case`` through ``flash_attention_bshd``: the kernel
+    ``kernel_for`` picks, one launch by the wrapper's counters and by
+    the kernels' own counts on the card, and the output within the
+    tolerance of the plain version; returns the max |difference|."""
     from repro_torch.kernels import flash_attention as fa
+    shape, dtype, causal, window, cap = case
+    q, k, v = flash_qkv(case, seed, dev)
+    kernel = fa.kernel_for(q.dtype, shape[5])
+    before = (fa.launches, fa.launches_sm90, fa.launches_simt)
+    on_card = {name: fa.device_launches(name) for name in (fa.SM90, fa.SIMT)}
+    got = fa.flash_attention_bshd(q, k, v, causal=causal, window=window,
+                                  cap=cap)
+    sm90 = int(kernel == fa.SM90)
+    check((fa.launches, fa.launches_sm90, fa.launches_simt) == (
+        before[0] + 1, before[1] + sm90, before[2] + 1 - sm90),
+        f"wrapper launch counts wrong at {case}")
+    check({name: fa.device_launches(name) - n
+           for name, n in on_card.items()} == {fa.SM90: sm90,
+                                               fa.SIMT: 1 - sm90},
+          f"launches counted on the card wrong at {case}")
+    want = fa.flash_attention_reference(q, k, v, causal=causal,
+                                        window=window, cap=cap)
+    tol = FLASH_TOL[dtype]
+    worst = float((got.float() - want.float()).abs().max())
+    check(bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                              atol=tol)),
+          f"{kernel} through the wrapper differs from its plain version at "
+          f"{case}: max |err| {worst}")
+    log(f"kernels: {list(shape)} {dtype} through flash_attention_bshd: "
+        f"kernel_for -> {kernel}, 1 launch by the wrapper and on the card, "
+        f"max |err| {worst:.3g}")
+    return worst
+
+
+def flash_phase(seed: int) -> dict:
+    from repro_torch.kernels import _build, flash_attention as fa
     dev = DEVICE
     out = {}
     cases = FLASH_CASES + [FLASH_MAIN, FLASH_MAIN_F32] + FLASH_EXTRA + \
-        FLASH_ENCDEC + FLASH_DENSE
+        FLASH_ENCDEC + FLASH_DENSE + FLASH_SIMT_EDGE + \
+        [FLASH_MOE_F32, FLASH_VLM_F32]
     #: the shapes timed beside the serving path's, by their key in ``out``
     timed = {"moe_shape": FLASH_MOE, "vlm_shape": FLASH_VLM,
              "enc_shape": FLASH_ENC, "dec_shape": FLASH_DEC,
@@ -3958,7 +4144,9 @@ def flash_phase(seed: int) -> dict:
     errs, caught = {}, {}
     for kernel in (fa.SM90, fa.SIMT):
         worst = {"float32": 0.0, "bfloat16": 0.0}
-        taken = [c for c in cases if takes(kernel, c)]
+        # the tile-edge cases are the CUDA-core kernel's own
+        taken = [c for c in cases if takes(kernel, c) and (
+            kernel == fa.SIMT or c not in FLASH_SIMT_EDGE)]
         for i, case in enumerate(taken):
             err, caught[kernel, case] = flash_check(kernel, case, seed + i,
                                                     dev)
@@ -3987,6 +4175,17 @@ def flash_phase(seed: int) -> dict:
                         + " ".join(f"no {w} {f:.4f}"
                                    for w, f in caught[kernel, c].items())
                         for c in taken if caught[kernel, c]))
+    log(f"kernels: {fa.SIMT} at its tile edges: "
+        + ", ".join(f"{list(c[0])} {c[1]} causal={c[2]} window={c[3]} "
+                    f"cap={c[4]:g} {errs[fa.SIMT, c]:.3g}"
+                    for c in FLASH_SIMT_EDGE))
+    out["bf16_odd_through_wrapper"] = {
+        "shape": list(FLASH_BF16_ODD[0]),
+        "max_abs_err": flash_wrapper_check(FLASH_BF16_ODD, seed, dev)}
+    sass = sass_counts(_build.library_path(fa.SOURCE))
+    out["sass"] = sass
+    log(f"kernels: {fa.SIMT} SASS by cuobjdump, per instance (NOPs left "
+        f"out): {json.dumps(sass)}")
     for kernel, t in time_flash(FLASH_MAIN, seed, dev).items():
         out[kernel].update(t)
     for name, case in timed.items():
@@ -3995,8 +4194,9 @@ def flash_phase(seed: int) -> dict:
             out[name][kernel]["max_abs_err"] = errs[kernel, case]
             out[name][kernel]["planted_faults"] = \
                 caught[kernel, case]
-    out["simt_float32"] = dict(time_simt_float32(FLASH_MAIN_F32, seed, dev),
-                               max_abs_err=errs[fa.SIMT, FLASH_MAIN_F32])
+    for name, case in FLASH_F32_TIMED.items():
+        out[name] = dict(time_simt_float32(case, seed, dev),
+                         max_abs_err=errs[fa.SIMT, case])
     return out
 
 
@@ -6347,8 +6547,15 @@ def main() -> int:
         "bytes": fl[kernel]["bytes"],
         "max_abs_err_float32": fl[kernel]["max_abs_err_float32"],
         "max_abs_err_bfloat16": fl[kernel]["max_abs_err_bfloat16"],
-        # the CUDA-core kernel in float32 at the serving shape (phase 3)
+        # the CUDA-core kernel in float32 at the serving shape, and at
+        # qwen3-moe's and pixtral-12b's (phase 3)
         "float32_shape": fl["simt_float32"] if kernel == fa.SIMT else None,
+        "float32_moe_shape":
+            fl["simt_float32_moe"] if kernel == fa.SIMT else None,
+        "float32_vlm_shape":
+            fl["simt_float32_vlm"] if kernel == fa.SIMT else None,
+        "edge_cases": len(FLASH_SIMT_EDGE) if kernel == fa.SIMT else None,
+        "sass": fl["sass"] if kernel == fa.SIMT else None,
     } for name, kernel, source in (
         ("flash_attention_sm90", fa.SM90,
          "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"),

@@ -1,9 +1,11 @@
-// Flash attention, forward only: softmax(q k^T * scale) v with an online
-// softmax, so the (Sq, Sk) scores never reach device memory.
+// Flash attention, forward only, on the CUDA cores: softmax(q k^T * scale) v
+// with an online softmax, so the (Sq, Sk) scores never reach device memory.
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attention.py::
 // _flash_kernel (launched by flash_attention_bhsd, wrapped by
-// kernels/ops.py::flash_attention).  It computes the same function:
+// kernels/ops.py::flash_attention) for float32 inputs, and for bf16 at a
+// head_dim that is not a multiple of 16 (flash_attention_sm90.cu takes the
+// rest).  It computes the same function:
 //   - scores in fp32, times `scale`, then gemma2's softcap
 //     cap * tanh(s / cap) when cap > 0;
 //   - causal masking top-left aligned (k_pos <= q_pos, both from 0), a
@@ -13,30 +15,57 @@
 //   - a running max, denominator and accumulator in fp32, the output
 //     rounded to q's type once; a fully masked row gives 0, not NaN.
 // The TPU walked the kv blocks as a sequential grid dimension carrying
-// scratch between steps; here one thread block owns a (batch*head, 64-row
-// q tile) pair and walks the kv tiles in a loop, staging each 32-row K and
-// V tile through shared memory.  Kv tiles wholly above the causal diagonal
-// or wholly before the window are never visited.  q, k and v are read in
-// the (B, S, heads, D) layout by strides, with no transposed copies; D may
-// be anything up to 256 (tiles are zero-padded past D in shared memory).
-//
-// Thread layout: 256 threads, 4 per q row.  Thread (r, g) computes scores
-// for kv columns g, g+4, ..., g+28 from float4 reads of shared memory (row
-// stride = a multiple of 32 floats + 4, so the 8 rows of a warp hit
-// distinct banks), reduces the row's max and sum over its 4 lanes by warp
-// shuffles, and owns the float4 accumulator chunks 4g, 4g+16, ... of its
-// row's output.
+// scratch between steps; here one thread block owns a (batch*head, q tile)
+// pair and walks the kv tiles in a loop.  q, k and v are read in the
+// (B, S, heads, D) layout by strides, with no transposed copies; D may be
+// anything up to 256.
 //
 // Bound on this card (H100 SXM): 4*D FLOPs per visible (q, k) pair (two
-// products of D multiply-adds), at 989 TFLOP/s bf16 on the tensor cores,
-// or q, k, v and o moved once at 3.35 TB/s, whichever is larger.  At the
-// serving path's shape (bf16, B 4, S 2048, H 32, KV 8, D 128, causal) that
-// is 4*32*2048*2049/2 pairs * 512 FLOP = 137.5 GFLOP -> 0.139 ms, against
-// 167.8 MB -> 0.050 ms: bound by compute.  This kernel runs its products
-// on the CUDA cores in fp32, whose 67 TFLOP/s put a ceiling of 2.05 ms on
-// the same work.  Moving both products onto the tensor cores (mma.sync or
-// wgmma, bf16 in, fp32 accumulate) with TMA or cp.async loads of pipelined
-// kv tiles removes that ceiling; that is the next kernel's work.
+// products of D multiply-adds).  In float32 they run on the CUDA cores, at
+// 67 TFLOP/s: 128 FFMA a clock an SM.  Shared memory gives an SM 32 words
+// a clock, so a product that reads one shared word per FMA runs at a
+// quarter of that rate at best.  The design keeps that ratio high:
+//
+// - Register-blocked products.  A block has 256 threads: 16 row groups of
+//   kRows q rows (8; 4 in the 192- and 256-wide instances) by 16 column
+//   groups, one half-warp per row group.  For S = Q K^T over a 64-row kv
+//   tile the thread (rg, cg) owns kRows rows x 4 kv columns (cg, cg+16,
+//   cg+32, cg+48); each step of 4 along D reads kRows float4s of Q and 4 of
+//   K from row-major tiles for 16*kRows FMAs: 2.7 FMAs a word at kRows = 8.
+//   For O += P V the same thread owns its rows x the float4 columns 4cg,
+//   4cg+64, ...: each kv row reads kRows/4 float4s of P (stored
+//   transposed, [kv][q]) and one float4 of V per 64 columns, 4 FMAs a word
+//   at D = 128.  The tiles' row stride is DMAX + 4 floats (4 mod 8 words:
+//   8 consecutive rows on distinct banks).  P V runs over every column up
+//   to DMAX, V's columns past D held at 0: a test of the column in that
+//   loop splits it into branches the compiler cannot schedule across, and
+//   cost more on the card than the products it saves.
+// - Loads in flight.  K and V each have one buffer; K of the next tile is
+//   loaded while P V of this one is computed, and V of this tile while
+//   Q K^T is (two barriers a tile, each wait covering half a tile of
+//   compute; two K/V buffers do not fit beside the 128-row q tile at
+//   D = 128).  float32 rows that are 16-byte aligned go by cp.async.cg, 16
+//   bytes a copy, zero-filled past Sk; bf16 and unaligned rows are loaded
+//   into registers before the product and converted into shared memory
+//   after it.
+// - Masks only on edge tiles.  A tile wholly inside the visible region
+//   (below the diagonal, inside the window, before Sk) skips the
+//   per-element mask; only tiles that straddle an edge test each score.
+//   Kv tiles wholly above the causal diagonal or wholly before the window
+//   are never visited.
+// - Row statistics by shuffles.  A row's max reduces over its half-warp by
+//   four xor shuffles once a tile; the denominator stays a per-thread
+//   partial sum, reduced once at the end; the accumulator is rescaled once
+//   a 64-column tile.  Exponentials are exp2 of scores pre-scaled by
+//   log2(e).
+// - Heavy tiles first.  Blocks take the q tiles from the last to the
+//   first, so the causal rows that see most keys start in the first wave.
+//
+// Instances by DMAX, D rounded up: 64 (128 q rows a block, 103,424 bytes
+// of shared memory, two blocks an SM), 128 (128 q rows, 168,960 bytes, one
+// block an SM), 192 and 256 (64 q rows, 167,936 and 217,088 bytes, one
+// block an SM).  Tensor cores (TF32) would change the rounding the float32
+// tolerance holds, so both products stay in full fp32.
 
 #include <climits>
 #include <cstdint>
@@ -45,11 +74,20 @@
 
 namespace {
 
-constexpr int kBQ = 64;         // q rows per block
-constexpr int kBK = 32;         // kv rows per tile
-constexpr int kThreads = 256;   // 4 threads per q row
-constexpr int kCols = kBK / 4;  // score columns per thread
+constexpr int kGroups = 16;             // row groups a block, a half-warp each
+constexpr int kThreads = 16 * kGroups;  // by 16 column groups
+constexpr int kBK = 64;                 // kv rows per tile
+constexpr int kCols = 4;       // kv columns of S per thread: cg + 16j
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the SFU (ex2.approx.ftz: relative error about 2^-22; p below
+// 2^-126 flushes to 0, far under the float32 tolerance of the sums).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // Launches that reached the card, counted by the kernel itself (block 0,
 // thread 0 adds one): a count that a host-side trace cannot lose.
@@ -68,6 +106,7 @@ struct Params {
   int causal, window;
   float scale, cap;
   int n_q_tiles;
+  int bh;  // B * H
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -83,146 +122,349 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// Row stride of the shared tiles, in floats: a multiple of 32 plus 4.
-__host__ __device__ __forceinline__ int tile_ld(int d) {
-  return ((d + 31) / 32) * 32 + 4;
+// The tiles of an instance.  kLd, the row stride of the q, k and v tiles
+// in floats, is DMAX plus 4: a stride of 4 mod 8 words puts 8 consecutive
+// rows on distinct banks.
+template <int DMAX>
+struct Tile {
+  static constexpr int kRows = DMAX > 128 ? 4 : 8;  // q rows a thread
+  static constexpr int kBQ = kGroups * kRows;       // q rows a block
+  static constexpr int kChunks = DMAX / 64;  // float4 columns of O a thread
+  static constexpr int kMinBlocks = DMAX <= 64 ? 2 : 1;
+  static constexpr int kLd = DMAX + 4;
+  static constexpr int kLdP = kBQ + 4;  // the P tile's row stride
+  // steps of Q K^T unrolled: 4 hides the shared loads better; at 64 the
+  // two blocks an SM leave 128 registers, and 2 spills less
+  static constexpr int kUnrollQK = DMAX <= 64 ? 2 : 4;
+  static constexpr size_t kSmemBytes =
+      sizeof(float) * (kBQ * kLd + 2 * kBK * kLd + kBK * kLdP);
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-__host__ __device__ __forceinline__ size_t smem_bytes(int d) {
-  const int ld = tile_ld(d);
-  return sizeof(float) *
-         (static_cast<size_t>(kBQ) * ld + 2 * static_cast<size_t>(kBK) * ld +
-          static_cast<size_t>(kBQ) * (kBK + 1));
+// Copies rows [pos0, pos0 + kRowsT) of a (S, D) matrix (row stride ss) into
+// a shared tile with stride ld by cp.async, 16 bytes a copy; rows at or past
+// S are zero-filled.  Needs D % 4 == 0 and 16-byte aligned rows.
+template <int kRowsT, int ld>
+__device__ __forceinline__ void tile_async(float* dst, const float* src,
+                                           long long ss, int pos0, int S,
+                                           int D, int rg, int cg) {
+  const int nv = D / 4;
+#pragma unroll
+  for (int r = rg; r < kRowsT; r += kGroups) {
+    const int pos = pos0 + r;
+    const bool in = pos < S;
+    const float* row = src + (in ? static_cast<long long>(pos) * ss : 0);
+    for (int c = cg; c < nv; c += 16)
+      cp_async16(dst + r * ld + 4 * c, row + 4 * c, in);
+  }
 }
 
-// DMAX: D rounded up to 64, 128 or 256; it sizes the accumulator.
+// The same, element by element and converted to float, for bf16 or rows
+// that are not 16-byte aligned: columns D..dp-1 of the tile are zeroed.
+template <typename T, int kRowsT, int ld>
+__device__ __forceinline__ void tile_sync(float* dst, const T* src,
+                                          long long ss, int pos0, int S,
+                                          int D, int dp, int rg, int cg) {
+  for (int r = rg; r < kRowsT; r += kGroups) {
+    const int pos = pos0 + r;
+    for (int d = cg; d < dp; d += 16)
+      dst[r * ld + d] =
+          (pos < S && d < D)
+              ? to_float(src[static_cast<long long>(pos) * ss + d])
+              : 0.f;
+  }
+}
+
+// A kv tile held in registers between its load (before a product) and its
+// store into shared memory (after it), so the loads' latency hides behind
+// the product: element (rg + 16a, cg + 16b) at v[a][b].
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads)
+struct KvRegs {
+  static constexpr int kA = kBK / kGroups;
+  static constexpr int kB = DMAX / 16;
+  T v[kA][kB];
+
+  __device__ __forceinline__ void load(const T* src, long long ss, int pos0,
+                                       int S, int D, int rg, int cg) {
+#pragma unroll
+    for (int a = 0; a < kA; ++a) {
+      const int pos = pos0 + rg + kGroups * a;
+#pragma unroll
+      for (int b = 0; b < kB; ++b) {
+        const int d = cg + 16 * b;
+        v[a][b] = (pos < S && d < D)
+                      ? src[static_cast<long long>(pos) * ss + d]
+                      : from_float<T>(0.f);
+      }
+    }
+  }
+
+  template <int ld>
+  __device__ __forceinline__ void store(float* dst, int dp, int rg,
+                                        int cg) const {
+#pragma unroll
+    for (int a = 0; a < kA; ++a)
+#pragma unroll
+      for (int b = 0; b < kB; ++b) {
+        const int d = cg + 16 * b;
+        if (d < dp) dst[(rg + kGroups * a) * ld + d] = to_float(v[a][b]);
+      }
+  }
+};
+
+// kAsync: float32 with 16-byte aligned rows, tiles by cp.async; else tiles
+// through registers (KvRegs).  DMAX: D rounded up to 64, 128, 192 or 256.
+template <typename T, int DMAX, bool kAsync>
+__global__ void __launch_bounds__(kThreads, Tile<DMAX>::kMinBlocks)
     flash_fwd_kernel(const Params p) {
   if (blockIdx.x == 0 && threadIdx.x == 0)
     atomicAdd(&g_device_launches, 1ull);
-  constexpr int kChunks = DMAX / 16;  // float4 accumulator chunks per thread
+  constexpr int kRows = Tile<DMAX>::kRows;
+  constexpr int kBQ = Tile<DMAX>::kBQ;
+  constexpr int kChunks = Tile<DMAX>::kChunks;
+  constexpr int ld = Tile<DMAX>::kLd;
+  constexpr int kLdP = Tile<DMAX>::kLdP;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int ld = tile_ld(p.D);
   const int dp = (p.D + 3) & ~3;  // D rounded up to a float4
   float* qs = smem;               // [kBQ][ld]
   float* ks = qs + kBQ * ld;      // [kBK][ld]
-  float* vs = ks + kBK * ld;      // [kBK][ld]
-  float* ps = vs + kBK * ld;      // [kBQ][kBK + 1] probabilities
+  float* vs = ks + kBK * ld;      // [kBK][ld], columns dp.. zero
+  float* ps = vs + kBK * ld;      // [kBK][kLdP] probabilities, transposed
 
-  const int tile = blockIdx.x % p.n_q_tiles;
-  const int bh = blockIdx.x / p.n_q_tiles;
+  // the last q tile first: under a causal mask it sees the most keys
+  const int bh = blockIdx.x % p.bh;
+  const int tile = p.n_q_tiles - 1 - blockIdx.x / p.bh;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
   const int kvh = h / (p.H / p.KV);
   const int q0 = tile * kBQ;
   const int tid = threadIdx.x;
-  const int r = tid >> 2;  // q row of this thread within the tile
-  const int g = tid & 3;   // its lane within the row's 4
-  const int qpos = q0 + r;
+  const int rg = tid >> 4;  // row group: rows rg*kRows .. + kRows-1
+  const int cg = tid & 15;  // column group
+  const int qrow0 = q0 + rg * kRows;
 
   const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-
-  for (int i = tid; i < kBQ * dp; i += kThreads) {
-    const int row = i / dp;
-    const int d = i - row * dp;
-    const int pos = q0 + row;
-    qs[row * ld + d] =
-        (pos < p.Sq && d < p.D) ? to_float(qg[pos * p.q_ss + d]) : 0.f;
-  }
 
   // kv positions any row of this tile can see
   int k_lo = 0;
   int k_hi = p.Sk;
   if (p.causal) k_hi = min(k_hi, min(q0 + kBQ, p.Sq));
   if (p.window > 0) k_lo = max(0, q0 - p.window + 1);
+  const int k_start = (k_lo / kBK) * kBK;
+  const int n_tiles = k_hi > k_start ? (k_hi - k_start + kBK - 1) / kBK : 0;
 
-  float4 acc[kChunks];
+  // scores go to log2 units: p = exp2(x - m) with x = s * scale * log2(e)
+  const bool capped = p.cap > 0.f;
+  const float scale_log2 = p.scale * kLog2e;
+  const float scale_over_cap = capped ? p.scale / p.cap : 0.f;
+  const float cap_log2 = p.cap * kLog2e;
+
+  // P V reads every column of V up to DMAX: the ones past dp stay 0
+  for (int r = rg; r < kBK; r += kGroups)
+    for (int d = dp + cg; d < DMAX; d += 16) vs[r * ld + d] = 0.f;
+  KvRegs<T, DMAX> kreg, vreg;
+  if constexpr (kAsync) {
+    tile_async<kBQ, ld>(qs, reinterpret_cast<const float*>(qg), p.q_ss, q0,
+                        p.Sq, p.D, rg, cg);
+    cp_async_commit();
+    if (n_tiles > 0) {
+      tile_async<kBK, ld>(ks, reinterpret_cast<const float*>(kg), p.k_ss,
+                          k_start, p.Sk, p.D, rg, cg);
+      cp_async_commit();
+    }
+  } else {
+    tile_sync<T, kBQ, ld>(qs, qg, p.q_ss, q0, p.Sq, p.D, dp, rg, cg);
+    if (n_tiles > 0) kreg.load(kg, p.k_ss, k_start, p.Sk, p.D, rg, cg);
+  }
+
+  float4 acc[kRows][kChunks];
 #pragma unroll
-  for (int i = 0; i < kChunks; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  float m = kNegInf;
-  float l = 0.f;
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float m[kRows], l[kRows];  // l: this thread's share of the row's sum
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
 
-  for (int k0 = (k_lo / kBK) * kBK; k0 < k_hi; k0 += kBK) {
-    __syncthreads();  // the previous tile is consumed (and q is staged)
-    for (int i = tid; i < kBK * dp; i += kThreads) {
-      const int row = i / dp;
-      const int d = i - row * dp;
-      const int pos = k0 + row;
-      const bool in = pos < p.Sk && d < p.D;
-      ks[row * ld + d] = in ? to_float(kg[pos * p.k_ss + d]) : 0.f;
-      vs[row * ld + d] = in ? to_float(vg[pos * p.v_ss + d]) : 0.f;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_start + t * kBK;
+    // K of this tile lands; V's buffer is free (the last P V is done)
+    if constexpr (kAsync) {
+      cp_async_wait_all();
+    } else {
+      kreg.template store<ld>(ks, dp, rg, cg);
     }
     __syncthreads();
+    if constexpr (kAsync) {
+      tile_async<kBK, ld>(vs, reinterpret_cast<const float*>(vg), p.v_ss,
+                          k0, p.Sk, p.D, rg, cg);
+      cp_async_commit();
+    } else {
+      vreg.load(vg, p.v_ss, k0, p.Sk, p.D, rg, cg);
+    }
 
-    float s[kCols];
+    // S = Q K^T: kRows x 4 scores a thread
+    float s[kRows][kCols];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) s[j] = 0.f;
-    const float* qrow = qs + r * ld;
-    for (int d = 0; d < dp; d += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(qrow + d);
+    for (int i = 0; i < kRows; ++i)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float4 c =
-            *reinterpret_cast<const float4*>(ks + (g + 4 * j) * ld + d);
-        s[j] += a.x * c.x + a.y * c.y + a.z * c.z + a.w * c.w;
+      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
+    {
+      const float* qb = qs + rg * kRows * ld;
+      const float* kb = ks + cg * ld;
+#pragma unroll(Tile<DMAX>::kUnrollQK)
+      for (int d = 0; d < dp; d += 4) {
+        float4 kf[kCols];
+#pragma unroll
+        for (int j = 0; j < kCols; ++j)
+          kf[j] = *reinterpret_cast<const float4*>(kb + 16 * j * ld + d);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          const float4 a = *reinterpret_cast<const float4*>(qb + i * ld + d);
+#pragma unroll
+          for (int j = 0; j < kCols; ++j) {
+            s[i][j] = fmaf(a.x, kf[j].x, s[i][j]);
+            s[i][j] = fmaf(a.y, kf[j].y, s[i][j]);
+            s[i][j] = fmaf(a.z, kf[j].z, s[i][j]);
+            s[i][j] = fmaf(a.w, kf[j].w, s[i][j]);
+          }
+        }
       }
     }
 
-    unsigned ok_bits = 0;
-    float tmax = kNegInf;
+    // scale, softcap; the mask only where the tile straddles an edge
+    const bool edge = k0 + kBK > p.Sk || (p.causal && k0 + kBK - 1 > q0) ||
+                      (p.window > 0 && k0 <= q0 + kBQ - 1 - p.window);
+    unsigned ok_bits = 0xffffffffu;
+    if (capped) {
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int kpos = k0 + g + 4 * j;
-      bool ok = kpos < p.Sk && qpos < p.Sq;
-      if (p.causal) ok = ok && kpos <= qpos;
-      if (p.window > 0) ok = ok && kpos > qpos - p.window;
-      float x = s[j] * p.scale;
-      if (p.cap > 0.f) x = tanhf(x / p.cap) * p.cap;
-      s[j] = ok ? x : kNegInf;
-      ok_bits |= static_cast<unsigned>(ok) << j;
-      tmax = fmaxf(tmax, s[j]);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-    const float m_new = fmaxf(m, tmax);
-    const float corr = expf(m - m_new);
-    float psum = 0.f;
-    float* prow = ps + r * (kBK + 1);
+      for (int i = 0; i < kRows; ++i)
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const float pj = ((ok_bits >> j) & 1u) ? expf(s[j] - m_new) : 0.f;
-      prow[g + 4 * j] = pj;
-      psum += pj;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = l * corr + psum;
-    m = m_new;
+        for (int j = 0; j < kCols; ++j)
+          s[i][j] = cap_log2 * tanhf(s[i][j] * scale_over_cap);
+    } else {
 #pragma unroll
-    for (int i = 0; i < kChunks; ++i) {
-      acc[i].x *= corr;
-      acc[i].y *= corr;
-      acc[i].z *= corr;
-      acc[i].w *= corr;
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) s[i][j] *= scale_log2;
     }
-    __syncwarp();  // a row's 4 lanes share one warp: its p row is written
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int qpos = qrow0 + i;
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          const int kpos = k0 + cg + 16 * j;
+          bool ok = kpos < p.Sk;
+          if (p.causal) ok = ok && kpos <= qpos;
+          if (p.window > 0) ok = ok && kpos > qpos - p.window;
+          if (!ok) {
+            s[i][j] = kNegInf;
+            ok_bits &= ~(1u << (i * kCols + j));
+          }
+        }
+      }
+    }
 
+    // online softmax: the row max over the half-warp, P into shared memory
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int j = 1; j < kCols; ++j) mx = fmaxf(mx, s[i][j]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = fast_exp2(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const bool ok = (ok_bits >> (i * kCols + j)) & 1u;
+        s[i][j] = ok ? fast_exp2(s[i][j] - m_new) : 0.f;
+        sum += s[i][j];
+      }
+      l[i] = l[i] * corr + sum;
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        acc[i][c].x *= corr;
+        acc[i][c].y *= corr;
+        acc[i][c].z *= corr;
+        acc[i][c].w *= corr;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      float* prow = ps + (cg + 16 * j) * kLdP + rg * kRows;
+#pragma unroll
+      for (int i = 0; i < kRows; i += 4)
+        *reinterpret_cast<float4*>(prow + i) =
+            make_float4(s[i][j], s[i + 1][j], s[i + 2][j], s[i + 3][j]);
+    }
+
+    // V of this tile lands and P is written; K's buffer is free
+    if constexpr (kAsync) {
+      cp_async_wait_all();
+    } else {
+      vreg.template store<ld>(vs, dp, rg, cg);
+    }
+    __syncthreads();
+    if (t + 1 < n_tiles) {
+      if constexpr (kAsync) {
+        tile_async<kBK, ld>(ks, reinterpret_cast<const float*>(kg),
+                            p.k_ss, k0 + kBK, p.Sk, p.D, rg, cg);
+        cp_async_commit();
+      } else {
+        kreg.load(kg, p.k_ss, k0 + kBK, p.Sk, p.D, rg, cg);
+      }
+    }
+
+    // O += P V: kRows rows x kChunks float4 columns a thread (every
+    // column up to DMAX: a test of d < dp here would cost more than the
+    // products on the zero columns past it)
+#pragma unroll 4
     for (int c = 0; c < kBK; ++c) {
-      const float pc = prow[c];
+      float pr[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; i += 4) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(ps + c * kLdP + rg * kRows + i);
+        pr[i] = x.x;
+        pr[i + 1] = x.y;
+        pr[i + 2] = x.z;
+        pr[i + 3] = x.w;
+      }
       const float* vrow = vs + c * ld;
 #pragma unroll
-      for (int i = 0; i < kChunks; ++i) {
-        const int d = 16 * i + 4 * g;
-        if (d < dp) {
-          const float4 w = *reinterpret_cast<const float4*>(vrow + d);
-          acc[i].x += pc * w.x;
-          acc[i].y += pc * w.y;
-          acc[i].z += pc * w.z;
-          acc[i].w += pc * w.w;
+      for (int cc = 0; cc < kChunks; ++cc) {
+        const float4 w =
+            *reinterpret_cast<const float4*>(vrow + 4 * cg + 64 * cc);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          acc[i][cc].x = fmaf(pr[i], w.x, acc[i][cc].x);
+          acc[i][cc].y = fmaf(pr[i], w.y, acc[i][cc].y);
+          acc[i][cc].z = fmaf(pr[i], w.z, acc[i][cc].z);
+          acc[i][cc].w = fmaf(pr[i], w.w, acc[i][cc].w);
         }
       }
     }
@@ -230,46 +472,80 @@ __global__ void __launch_bounds__(kThreads)
 
   // out = acc / l (l == 0 on a fully masked row: out = 0), staged through
   // the q tile's shared memory so the store is coalesced
+  if constexpr (kAsync) cp_async_wait_all();  // no kv tile: q still landing
   __syncthreads();
-  const float denom = (l == 0.f) ? 1.f : l;
-  float* orow = qs + r * ld;
 #pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    const int d = 16 * i + 4 * g;
-    if (d < dp) {
-      *reinterpret_cast<float4*>(orow + d) =
-          make_float4(acc[i].x / denom, acc[i].y / denom, acc[i].z / denom,
-                      acc[i].w / denom);
+  for (int i = 0; i < kRows; ++i) {
+    float sum = l[i];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+    const float inv = sum == 0.f ? 0.f : 1.f / sum;
+    float* orow = qs + (rg * kRows + i) * ld;
+#pragma unroll
+    for (int cc = 0; cc < kChunks; ++cc) {
+      const int d = 4 * cg + 64 * cc;
+      if (d < dp)
+        *reinterpret_cast<float4*>(orow + d) =
+            make_float4(acc[i][cc].x * inv, acc[i][cc].y * inv,
+                        acc[i][cc].z * inv, acc[i][cc].w * inv);
     }
   }
   __syncthreads();
   T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
-  for (int i = tid; i < kBQ * p.D; i += kThreads) {
-    const int row = i / p.D;
-    const int d = i - row * p.D;
-    const int pos = q0 + row;
-    if (pos < p.Sq) og[pos * p.o_ss + d] = from_float<T>(qs[row * ld + d]);
+  for (int r = rg; r < kBQ; r += kGroups) {
+    const int pos = q0 + r;
+    if (pos >= p.Sq) break;
+    T* orow = og + static_cast<long long>(pos) * p.o_ss;
+    if constexpr (kAsync) {
+      for (int c = cg; c < p.D / 4; c += 16)
+        reinterpret_cast<float4*>(orow)[c] =
+            *reinterpret_cast<const float4*>(qs + r * ld + 4 * c);
+    } else {
+      for (int d = cg; d < p.D; d += 16)
+        orow[d] = from_float<T>(qs[r * ld + d]);
+    }
   }
 }
 
-template <typename T, int DMAX>
-cudaError_t launch(const Params& p, long long blocks, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.D);
+template <typename T, int DMAX, bool kAsync>
+cudaError_t launch(Params p, cudaStream_t stream) {
+  constexpr int kBQ = Tile<DMAX>::kBQ;
+  p.n_q_tiles = (p.Sq + kBQ - 1) / kBQ;
+  const long long blocks = static_cast<long long>(p.bh) * p.n_q_tiles;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  constexpr size_t smem = Tile<DMAX>::kSmemBytes;
   const cudaError_t set = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_kernel<T, DMAX, kAsync>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (set != cudaSuccess) return set;
-  flash_fwd_kernel<T, DMAX><<<static_cast<unsigned int>(blocks), kThreads,
-                              smem, stream>>>(p);
+  flash_fwd_kernel<T, DMAX, kAsync>
+      <<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_for_d(const Params& p, long long blocks,
-                         cudaStream_t stream) {
-  if (p.D <= 64) return launch<T, 64>(p, blocks, stream);
-  if (p.D <= 128) return launch<T, 128>(p, blocks, stream);
-  return launch<T, 256>(p, blocks, stream);
+template <typename T, bool kAsync>
+cudaError_t launch_for_d(const Params& p, cudaStream_t stream) {
+  if (p.D <= 64) return launch<T, 64, kAsync>(p, stream);
+  if (p.D <= 128) return launch<T, 128, kAsync>(p, stream);
+  if (p.D <= 192) return launch<T, 192, kAsync>(p, stream);
+  return launch<T, 256, kAsync>(p, stream);
+}
+
+// Whether every row of q, k, v and o starts on 16 bytes, so float32 tiles
+// can go by 16-byte cp.async and the output by float4 stores.
+bool rows_aligned(const Params& p) {
+  if (p.D % 4) return false;
+  const long long strides[12] = {p.q_sb, p.q_ss, p.q_sh, p.k_sb,
+                                 p.k_ss, p.k_sh, p.v_sb, p.v_ss,
+                                 p.v_sh, p.o_sb, p.o_ss, p.o_sh};
+  for (long long s : strides)
+    if (s % 4) return false;
+  const void* ptrs[4] = {p.q, p.k, p.v, p.o};
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16) return false;
+  return true;
 }
 
 }  // namespace
@@ -318,13 +594,18 @@ extern "C" int lcap_flash_attention(const void* q, const void* k,
   p.window = window;
   p.scale = scale;
   p.cap = cap;
-  p.n_q_tiles = (Sq + kBQ - 1) / kBQ;
-  const long long blocks = static_cast<long long>(B) * H * p.n_q_tiles;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  p.n_q_tiles = 0;  // set by launch() for the instance's tile
+  if (static_cast<long long>(B) * H > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.bh = B * H;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dtype == 0
-                              ? launch_for_d<float>(p, blocks, s)
-                              : launch_for_d<__nv_bfloat16>(p, blocks, s);
+  cudaError_t err;
+  if (dtype == 1)
+    err = launch_for_d<__nv_bfloat16, false>(p, s);
+  else if (rows_aligned(p))
+    err = launch_for_d<float, true>(p, s);
+  else
+    err = launch_for_d<float, false>(p, s);
   return static_cast<int>(err);
 }
 

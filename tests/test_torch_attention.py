@@ -39,14 +39,16 @@ SHAPES = [
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
-def qkv(shape, dtype, seed):
+def qkv(shape, dtype, seed, q_scale=1.0):
     """Seeded inputs as (reference jnp arrays, port CPU tensors): drawn
-    in float32 and rounded once to ``dtype`` on each side (both round to
-    nearest even, so the two sides hold identical values)."""
+    in float32 (q times ``q_scale``) and rounded once to ``dtype`` on
+    each side (both round to nearest even, so the two sides hold
+    identical values)."""
     B, Sq, Sk, H, KV, D = shape
     rng = np.random.default_rng(seed)
     arrays = [rng.standard_normal(s, dtype=np.float32)
               for s in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D))]
+    arrays[0] = arrays[0] * np.float32(q_scale)
     ref = tuple(jnp.asarray(a, getattr(jnp, dtype)) for a in arrays)
     port = tuple(torch.from_numpy(a).to(getattr(torch, dtype))
                  for a in arrays)
@@ -112,6 +114,55 @@ def test_flash_fully_masked_rows_are_zero():
     assert bool((got[:, 20:] == 0).all())
     assert bool(torch.isfinite(got).all())
     assert_close(got, ref, TOL["float32"])
+
+
+#: the CUDA-core kernel's tile edges (tests/test_torch_card.py holds the
+#: kernel to the port's plain version at the same geometry): head_dims 1,
+#: 4, 36, 100, 200 and 256, lengths 1, 63, 65, 129 and 1000, Sq != Sk
+#: causal and not, GQA 8:1, windows of 100 and 200 that end inside a
+#: 64-row kv tile, the softcap with q times 24 (so that the cap changes
+#: the scores), and rows with nothing visible (window 5 over 65 keys);
+#: (shape, causal, window, cap)
+EDGE_GEOMETRY = [((1, 1, 1, 2, 1, 1), True, 0, 0.0),
+                 ((2, 63, 65, 8, 1, 4), True, 0, 0.0),
+                 ((1, 65, 63, 4, 2, 36), False, 0, 0.0),
+                 ((1, 129, 1000, 8, 1, 100), False, 0, 0.0),
+                 ((1, 1000, 129, 4, 1, 200), True, 0, 0.0),
+                 ((1, 1000, 1000, 2, 1, 256), True, 100, 0.0),
+                 ((1, 129, 129, 4, 4, 100), True, 0, 30.0),
+                 ((1, 129, 65, 4, 1, 36), True, 5, 0.0),
+                 ((1, 1000, 1000, 8, 1, 64), True, 200, 50.0),
+                 ((2, 65, 1000, 4, 2, 1), False, 0, 0.0)]
+CAP_Q_SCALE = 24.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", EDGE_GEOMETRY,
+                         ids=lambda c: "-".join(map(str, c[0])) +
+                         f"-causal{int(c[1])}-w{c[2]}-cap{c[3]:g}")
+def test_flash_tile_edges_match_reference_kernel(case, dtype):
+    """The port's plain version against the reference's Pallas kernel
+    (64-row q and kv blocks, in interpret mode) at the geometry of the
+    CUDA-core kernel's tile edges; rows with nothing visible give 0."""
+    shape, causal, window, cap = case
+    (rq, rk, rv), (pq, pk, pv) = qkv(shape, dtype, sum(shape),
+                                     CAP_Q_SCALE if cap else 1.0)
+    kw = {"causal": causal, "window": window, "cap": cap}
+    ref = ref_ops.flash_attention(rq, rk, rv, block_q=64, block_k=64,
+                                  interpret=True, **kw)
+    before = fa.launches
+    got = port_ops.flash_attention(pq, pk, pv, **kw)
+    assert fa.launches == before       # CPU tensors: the plain version
+    assert got.shape == pq.shape and got.dtype == pq.dtype
+    assert bool(torch.isfinite(got).all())
+    _, Sq, Sk = shape[:3]
+    q = np.arange(Sq)
+    hi = np.minimum(q, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(Sq, int)
+    assert bool((got[:, torch.from_numpy(q[hi < lo])] == 0).all())
+    if window == 5:
+        assert (hi < lo).sum() == Sq - 69
+    assert_close(got, ref, TOL[dtype])
 
 
 CORE_CASES = [

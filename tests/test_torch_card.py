@@ -190,6 +190,14 @@ def takes(kernel, case):
                                               case[0][5]) == fa.SM90
 
 
+def masked_rows(Sq, Sk, causal, window):
+    """The query rows that see no key at all."""
+    q = np.arange(Sq)
+    hi = np.minimum(q, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(Sq, int)
+    return q[hi < lo]
+
+
 def check_against_plain(got, q, k, v, case):
     shape, dtype, causal, window, cap = case
     assert got.shape == q.shape and got.dtype == q.dtype
@@ -197,11 +205,17 @@ def check_against_plain(got, q, k, v, case):
                                         window=window, cap=cap)
     tol = 2e-2 if dtype == "bfloat16" else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-    if shape == (1, 64, 16, 2, 1, 32):
-        assert bool((got[:, 20:] == 0).all())
+    empty = torch.as_tensor(masked_rows(shape[1], shape[2], causal, window),
+                            device=got.device)
+    assert bool((got[:, empty] == 0).all())
 
 
-@pytest.mark.parametrize("case", FLASH_CASES, ids=case_id)
+#: bf16 at a head_dim that is not a multiple of 16: ``kernel_for`` sends
+#: it to the CUDA-core kernel
+BF16_ODD = ((2, 129, 129, 4, 2, 72), "bfloat16", True, 0, 0.0)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES + [BF16_ODD], ids=case_id)
 def test_flash_kernel_matches_plain_version(card, case):
     """Through the wrapper: the kernel ``kernel_for`` picks, one launch,
     counted by the wrapper and by the kernel itself on the card."""
@@ -245,9 +259,29 @@ EXTRA_CASES = [SERVING,
 DENSE_CASES = [((2, 8192, 8192, 16, 8, 224), "bfloat16", True, 4096, 50.0),
                ((2, 8192, 8192, 16, 8, 224), "bfloat16", True, 0, 50.0),
                ((4, 2048, 2048, 40, 8, 128), "bfloat16", True, 0, 0.0)]
+#: the CUDA-core kernel's tile edges, in float32 and bf16: head_dims 1,
+#: 4, 36, 100, 200 and 256 (every instance, both staging routes), lengths
+#: 1, 63, 65, 129 and 1000 (under, at and past its 64-row kv and 64- or
+#: 128-row q tiles), Sq != Sk causal and not, GQA 8:1, windows of 100 and
+#: 200 that end inside a kv tile, the softcap (q times CAP_Q_SCALE), and
+#: rows with nothing visible (window 5 over 65 keys: q >= 69)
+SIMT_GEOMETRY = [((1, 1, 1, 2, 1, 1), True, 0, 0.0),
+                 ((2, 63, 65, 8, 1, 4), True, 0, 0.0),
+                 ((1, 65, 63, 4, 2, 36), False, 0, 0.0),
+                 ((1, 129, 1000, 8, 1, 100), False, 0, 0.0),
+                 ((1, 1000, 129, 4, 1, 200), True, 0, 0.0),
+                 ((1, 1000, 1000, 2, 1, 256), True, 100, 0.0),
+                 ((1, 129, 129, 4, 4, 100), True, 0, 30.0),
+                 ((1, 129, 65, 4, 1, 36), True, 5, 0.0),
+                 ((1, 1000, 1000, 8, 1, 64), True, 200, 50.0),
+                 ((2, 65, 1000, 4, 2, 1), False, 0, 0.0)]
+SIMT_EDGE_CASES = [(shape, dtype, causal, window, cap)
+                   for shape, causal, window, cap in SIMT_GEOMETRY
+                   for dtype in ("float32", "bfloat16")]
 KERNEL_CASES = [(kernel, case)
                 for case in FLASH_CASES + EXTRA_CASES + DENSE_CASES
-                for kernel in (fa.SM90, fa.SIMT) if takes(kernel, case)]
+                for kernel in (fa.SM90, fa.SIMT) if takes(kernel, case)] + \
+    [(fa.SIMT, case) for case in SIMT_EDGE_CASES]
 
 
 @pytest.mark.parametrize("kernel,case", KERNEL_CASES,

@@ -13,8 +13,9 @@ record dropped, or duplicated where the path is graceful.  The repairs
 the phase called for are held here too: a routing round reads the
 backlog present when it starts (a producer appending meanwhile cannot
 stretch it), a topology change asked for from another thread gets the
-coordinator lock between two rounds of a busy routing loop, and the
-router counts the reads it hashes under its lock.
+coordinator lock between two rounds of a busy routing loop, the router
+counts the reads it hashes under its lock, and part (a)'s churn storm
+parks records for its first migration whatever the threads' timing.
 """
 
 import importlib.util
@@ -287,6 +288,25 @@ def test_a_topology_change_is_not_starved_by_a_busy_routing_loop(journals):
     assert cluster.stats["parked_records"] > 0
     assert smoke.check_delivered("stream", consumer.counts,
                                  exactly_once=True) == 0
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_churn_storm_parks_records_for_its_first_migration(seed):
+    """Phase 7a (a) on the CPU at 4 x 4096 records a window: the storm's
+    first migration is in flight while the feeder still streams, so the
+    routing loop parks records whatever the threads' timing (before, a
+    feeder that ran ahead of the storm left nothing to park), and the
+    phase's checks hold: both windows exactly once, three migrations,
+    two shards added, an epoch bump seen for each."""
+    n = 4096
+    arrays = {f"mdt{m}": smoke.make_journal_arrays(m, 2 * n, seed)
+              for m in range(smoke.N_MDTS)}
+    records = {pid: smoke.journal_records(T, a, 0, 2 * n)
+               for pid, a in arrays.items()}
+    run = smoke.run_churn(records, "cpu", seed)
+    assert run["stats"]["parked_records"] > 0
+    assert run["hold_s"] is not None
+    assert smoke.verify_churn(run)["duplicates"] == 0
 
 
 def test_router_counts_reads_under_its_lock():
