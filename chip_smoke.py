@@ -28,7 +28,7 @@ Phases, in order; any failed check exits nonzero and prints no result:
             and at extra bf16 cases (a 2049-token prefill, gemma2's
             head_dim with window and softcap, rows with nothing visible,
             phase 9's head_dim 64 with GQA 32:4, phase 11's head_dim 160
-            (padded to 192 in the wgmma kernel), phase 12's non-causal
+            (an instance of the wgmma kernel's own), phase 12's non-causal
             encoder over 1500 frames and its decoder prefill, small
             non-causal cases with Sq != Sk and Sk not a multiple of 64,
             and the prefills of phases 12a and 12b: gemma2-9b's 2 x 8192
@@ -38,17 +38,24 @@ Phases, in order; any failed check exits nonzero and prints no result:
             softcap has q scaled so that the cap matters, and each
             kernel launched without the case's softcap or window must
             fail the same check; both timed at the shapes of phases 5,
-            9, 11, 12 (encoder and decoder), 12a (both layers) and 12b,
+            9, 11, 12 (encoder and decoder), 12a (both layers, and the
+            global one without its softcap) and 12b,
             in turns with ``scaled_dot_product_attention`` on the same
             tensors as a yardstick (the port never calls it; with
             gemma2's softcap, ``flex_attention`` compiled with the cap
             as its score_mod, and SDPA without the cap beside it); the
-            CUDA-core kernel also checked at its tile edges in float32
-            and bf16 (``FLASH_SIMT_EDGE``: head_dims 1 to 256, lengths 1
-            to 1000, Sq != Sk, GQA 8:1, windows ending inside a kv tile,
-            the softcap, rows with nothing visible), in bf16 at head_dim
-            72 through the wrapper (``kernel_for``'s CUDA-core branch,
-            launches counted by the wrapper and on the card), its SASS
+            wgmma kernel also checked at its tile edges
+            (``FLASH_SM90_EDGE``: every instance, head_dims 16 to 256,
+            lengths 1 to 1000, Sq != Sk, GQA 8:1, windows ending inside a
+            kv tile, the softcap, rows with nothing visible), each
+            instance's registers, stack and spills (``cuobjdump
+            --dump-resource-usage``) and its SASS spills and wgmmas
+            logged; the CUDA-core kernel also checked at its tile edges in
+            float32 and bf16 (``FLASH_SIMT_EDGE``: head_dims 1 to 256,
+            lengths 1 to 1000, Sq != Sk, GQA 8:1, windows ending inside a
+            kv tile, the softcap, rows with nothing visible), in bf16 at
+            head_dim 72 through the wrapper (``kernel_for``'s CUDA-core
+            branch, launches counted by the wrapper and on the card), its SASS
             counted by opcode, and checked and timed in float32 at the
             shapes of phases 5, 9 and 11 (head_dims 128, 64 and 160),
             against SDPA in float32 and its bound at the card's float32
@@ -242,8 +249,8 @@ Phases, in order; any failed check exits nonzero and prints no result:
             with its cross attention in float32 on the card against the
             CPU, within 1e-4;
 12a. gemma gemma2-9b at full width and depth (42 layers, 9.01 B
-            parameters in bf16; head_dim 224, padded to 256 in the wgmma
-            kernel; a window of 4096 on its 21 local layers; attention
+            parameters in bf16; head_dim 224, an instance of the wgmma
+            kernel's own; a window of 4096 on its 21 local layers; attention
             and logit softcaps; tied, scaled embeddings over 256,000
             rows) serving 2 prompts of 8192 tokens: 42 wgmma launches per
             prefill, 21 of them with window 4096 (by the wrapper's
@@ -462,12 +469,16 @@ FLASH_ENCDEC = [FLASH_VLM, FLASH_ENC, FLASH_DEC,
                 ((2, 100, 1500, 4, 4, 64), "bfloat16", False, 0, 0.0),
                 ((1, 64, 130, 4, 2, 160), "bfloat16", False, 0, 0.0)]
 #: the attention kernel's shapes on phases 12a and 12b: gemma2-9b's
-#: prefill at head_dim 224 (padded to 256 in the wgmma kernel), GQA 16:8,
+#: prefill at head_dim 224 (an instance of the wgmma kernel), GQA 16:8,
 #: its softcap of 50 on every layer, on its local layers (window 4096) and
 #: its global ones; qwen2.5-14b's (GQA 40:8, head_dim 128)
 FLASH_GEMMA = ((2, 8192, 8192, 16, 8, 224), "bfloat16", True, 4096, 50.0)
 FLASH_GEMMA_GLOBAL = ((2, 8192, 8192, 16, 8, 224), "bfloat16", True, 0,
                       50.0)
+#: gemma2-9b's global layer without its softcap: timed beside the capped
+#: call in phase 3, so the cap's cost in the wgmma kernel is a measured
+#: number
+FLASH_GEMMA_NOCAP = ((2, 8192, 8192, 16, 8, 224), "bfloat16", True, 0, 0.0)
 FLASH_QWEN = ((4, 2048, 2048, 40, 8, 128), "bfloat16", True, 0, 0.0)
 FLASH_DENSE = [FLASH_GEMMA, FLASH_GEMMA_GLOBAL, FLASH_QWEN]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -491,6 +502,30 @@ FLASH_SIMT_GEOMETRY = [
 FLASH_SIMT_EDGE = [(shape, dtype, causal, window, cap)
                    for shape, causal, window, cap in FLASH_SIMT_GEOMETRY
                    for dtype in ("float32", "bfloat16")]
+#: the wgmma kernel's tile edges, in bf16 (it takes nothing else): head
+#: dims 16, 48, 64, 96, 128, 144, 160, 192, 208, 224 and 256 (every
+#: instance, at its own width and padded up to it), lengths 1, 63, 65,
+#: 127, 129, 191, 193, 257 and 1000 (under, at and past its 128- and
+#: 192-row q tiles and its 64- to 128-row kv tiles), Sq != Sk causal and
+#: not, GQA 8:1, windows of
+#: 100, 200 and 300 that end inside a kv tile, the softcap (q times
+#: CAP_Q_SCALE), and rows with nothing visible (window 5 over 65 keys:
+#: q >= 69; their blocks have no kv tile at all)
+FLASH_SM90_GEOMETRY = [
+    ((1, 1, 1, 2, 1, 16), True, 0, 0.0),
+    ((2, 63, 65, 8, 1, 48), True, 0, 0.0),
+    ((1, 65, 63, 4, 2, 64), False, 0, 0.0),
+    ((1, 127, 129, 4, 1, 96), False, 0, 0.0),
+    ((1, 129, 1000, 8, 1, 128), False, 0, 0.0),
+    ((1, 1000, 129, 4, 1, 144), True, 0, 0.0),
+    ((1, 193, 191, 4, 2, 128), True, 0, 0.0),
+    ((1, 257, 257, 4, 2, 160), True, 100, 0.0),
+    ((1, 1000, 1000, 2, 1, 192), True, 200, 50.0),
+    ((1, 129, 65, 4, 1, 208), True, 5, 0.0),
+    ((1, 1000, 1000, 2, 1, 224), True, 300, 50.0),
+    ((2, 257, 1000, 4, 2, 256), False, 0, 30.0)]
+FLASH_SM90_EDGE = [(shape, "bfloat16", causal, window, cap)
+                   for shape, causal, window, cap in FLASH_SM90_GEOMETRY]
 #: bf16 at a head_dim that is not a multiple of 16: through the wrapper,
 #: kernel_for sends it to the CUDA-core kernel
 FLASH_BF16_ODD = ((2, 129, 129, 4, 2, 72), "bfloat16", True, 0, 0.0)
@@ -754,14 +789,16 @@ def fid_slots_bound_ms(n: int) -> tuple:
 
 
 #: opcodes ``sass_counts`` counts one by one
-SASS_OPS = ("FFMA", "LDS", "STS", "SHFL", "MUFU", "LDGSTS")
+SASS_OPS = ("FFMA", "LDS", "STS", "SHFL", "MUFU", "LDGSTS", "STL", "LDL",
+            "HGMMA")
 
 
 def sass_counts(lib) -> dict:
     """SASS instructions of each function in a built library, by
     ``cuobjdump -sass`` (NOPs left out): {function: {"instructions",
     "loads" (LDG), "calls" (CALL), and by opcode "ffma", "lds" (shared
-    loads), "sts", "shfl", "mufu", "ldgsts" (cp.async)}}."""
+    loads), "sts", "shfl", "mufu", "ldgsts" (cp.async), "stl" and "ldl"
+    (spills to and from local memory), "hgmma" (wgmma)}}."""
     import re
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc()).with_name("cuobjdump")
@@ -774,6 +811,7 @@ def sass_counts(lib) -> dict:
         if head:
             name = head.group(1)
             counts[name] = {"instructions": 0, "loads": 0, "calls": 0,
+                            "registers_named": 0,
                             **{op.lower(): 0 for op in SASS_OPS}}
             continue
         ins = re.match(
@@ -787,7 +825,49 @@ def sass_counts(lib) -> dict:
         base = op.split(".")[0]
         if base in SASS_OPS:
             counts[name][base.lower()] += 1
+        # the instruction's text: between its address and its encoding
+        text = line.split("*/", 1)[1].split("/*", 1)[0]
+        for reg in re.findall(r"\bR(\d+)\b", text):
+            counts[name]["registers_named"] = max(
+                counts[name]["registers_named"], int(reg) + 1)
     return counts
+
+
+def resource_usage(lib) -> dict:
+    """Each function's resources in a built library, by ``cuobjdump
+    --dump-resource-usage``: {function: {"registers" (a thread's at
+    launch), "stack_bytes" (its stack frame: spills land there),
+    "local_bytes"}}."""
+    import re
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "--dump-resource-usage", str(lib)],
+                         capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+    usage, name = {}, None
+    for line in out.stdout.splitlines():
+        head = re.match(r"\s*Function (\S+):", line)
+        if head:
+            name = head.group(1)
+            continue
+        regs = re.search(r"REG:(\d+) STACK:(\d+).*LOCAL:(\d+)", line)
+        if name is not None and regs:
+            usage[name] = {"registers": int(regs.group(1)),
+                           "stack_bytes": int(regs.group(2)),
+                           "local_bytes": int(regs.group(3))}
+            name = None
+    return usage
+
+
+def by_instance(counts: dict) -> dict:
+    """``counts`` keyed by each attention instance's width (the template
+    argument in its mangled name: ``...kernelILi160E...`` -> "160")."""
+    import re
+    out = {}
+    for name, c in counts.items():
+        width = re.search(r"kernelI\w*?Li(\d+)E", name)
+        out[width.group(1) if width else name] = c
+    return out
 
 
 def round_trip(seed: int) -> dict:
@@ -4128,25 +4208,49 @@ def flash_wrapper_check(case, seed: int, dev) -> float:
     return worst
 
 
+def attention_binaries(simt_lib, sm90_lib) -> tuple:
+    """What ``cuobjdump`` reads in the two attention libraries: the
+    CUDA-core one's SASS counts, and the wgmma one's resource usage and
+    SASS counts by instance width (a child process's work, beside the
+    card's checks and timings)."""
+    return (sass_counts(simt_lib), by_instance(resource_usage(sm90_lib)),
+            by_instance(sass_counts(sm90_lib)))
+
+
 def flash_phase(seed: int) -> dict:
     from repro_torch.kernels import _build, flash_attention as fa
+    # the libraries' SASS is read in a child process while the card works
+    with spawn_pool(1) as pool:
+        return flash_checks(seed, pool.submit(
+            attention_binaries, _build.library_path(fa.SOURCE),
+            _build.library_path(fa.SOURCE_SM90)))
+
+
+def flash_checks(seed: int, binaries) -> dict:
+    """Phase 3's attention half: ``binaries`` is the future of
+    ``attention_binaries``."""
+    from repro_torch.kernels import flash_attention as fa
     dev = DEVICE
     out = {}
     cases = FLASH_CASES + [FLASH_MAIN, FLASH_MAIN_F32] + FLASH_EXTRA + \
-        FLASH_ENCDEC + FLASH_DENSE + FLASH_SIMT_EDGE + \
-        [FLASH_MOE_F32, FLASH_VLM_F32]
+        FLASH_ENCDEC + FLASH_DENSE + [FLASH_GEMMA_NOCAP] + \
+        FLASH_SIMT_EDGE + FLASH_SM90_EDGE + [FLASH_MOE_F32, FLASH_VLM_F32]
     #: the shapes timed beside the serving path's, by their key in ``out``
     timed = {"moe_shape": FLASH_MOE, "vlm_shape": FLASH_VLM,
              "enc_shape": FLASH_ENC, "dec_shape": FLASH_DEC,
              "gemma_shape": FLASH_GEMMA,
              "gemma_global_shape": FLASH_GEMMA_GLOBAL,
+             "gemma_global_nocap_shape": FLASH_GEMMA_NOCAP,
              "qwen_shape": FLASH_QWEN}
+    #: each kernel's own cases: its tile edges, and for the wgmma kernel
+    #: gemma2's global layer without the cap (the cap's cost in it)
+    own = {fa.SM90: FLASH_SM90_EDGE + [FLASH_GEMMA_NOCAP],
+           fa.SIMT: FLASH_SIMT_EDGE}
     errs, caught = {}, {}
     for kernel in (fa.SM90, fa.SIMT):
         worst = {"float32": 0.0, "bfloat16": 0.0}
-        # the tile-edge cases are the CUDA-core kernel's own
-        taken = [c for c in cases if takes(kernel, c) and (
-            kernel == fa.SIMT or c not in FLASH_SIMT_EDGE)]
+        other = own[fa.SIMT if kernel == fa.SM90 else fa.SM90]
+        taken = [c for c in cases if takes(kernel, c) and c not in other]
         for i, case in enumerate(taken):
             err, caught[kernel, case] = flash_check(kernel, case, seed + i,
                                                     dev)
@@ -4161,7 +4265,8 @@ def flash_phase(seed: int) -> dict:
             f"<= 2e-5 rtol+atol, bfloat16 {worst['bfloat16']:.3g} <= 2e-2; "
             f"serving shape {main_err:.3g}; "
             + "; ".join(f"{name} {errs[kernel, case]:.3g}"
-                        for name, case in timed.items()) + ")")
+                        for name, case in timed.items()
+                        if case in taken) + ")")
         log(f"kernels: {kernel} at the non-causal and head_dim 160 cases: "
             + ", ".join(f"{list(c[0])} causal={c[2]} {errs[kernel, c]:.3g}"
                         for c in FLASH_ENCDEC))
@@ -4175,22 +4280,39 @@ def flash_phase(seed: int) -> dict:
                         + " ".join(f"no {w} {f:.4f}"
                                    for w, f in caught[kernel, c].items())
                         for c in taken if caught[kernel, c]))
-    log(f"kernels: {fa.SIMT} at its tile edges: "
-        + ", ".join(f"{list(c[0])} {c[1]} causal={c[2]} window={c[3]} "
-                    f"cap={c[4]:g} {errs[fa.SIMT, c]:.3g}"
-                    for c in FLASH_SIMT_EDGE))
+    for kernel, cases_at in ((fa.SM90, FLASH_SM90_EDGE),
+                             (fa.SIMT, FLASH_SIMT_EDGE)):
+        log(f"kernels: {kernel} at its tile edges: "
+            + ", ".join(f"{list(c[0])} {c[1]} causal={c[2]} window={c[3]} "
+                        f"cap={c[4]:g} {errs[kernel, c]:.3g}"
+                        for c in cases_at))
     out["bf16_odd_through_wrapper"] = {
         "shape": list(FLASH_BF16_ODD[0]),
         "max_abs_err": flash_wrapper_check(FLASH_BF16_ODD, seed, dev)}
-    sass = sass_counts(_build.library_path(fa.SOURCE))
-    out["sass"] = sass
+    simt_sass, usage, sass = binaries.result()
+    out["sass"] = simt_sass
     log(f"kernels: {fa.SIMT} SASS by cuobjdump, per instance (NOPs left "
-        f"out): {json.dumps(sass)}")
+        f"out): {json.dumps(simt_sass)}")
+    # the wgmma kernel's instances, by width: registers and stack frame
+    # (cuobjdump --dump-resource-usage), and spill stores and loads and
+    # wgmma instructions in their SASS
+    out["instances_sm90"] = {width: {**usage[width], **{
+        op: sass[width][op] for op in ("instructions", "registers_named",
+                                       "stl", "ldl", "hgmma", "mufu")}}
+        for width in sorted(sass, key=int)}
+    log(f"kernels: {fa.SM90} instances by width: "
+        + "; ".join(f"{w}: {r['registers']} registers at launch, "
+                    f"{r['registers_named']} named, stack "
+                    f"{r['stack_bytes']} B, {r['stl']} STL / {r['ldl']} LDL, "
+                    f"{r['hgmma']} HGMMA, {r['mufu']} MUFU of "
+                    f"{r['instructions']} instructions"
+                    for w, r in out["instances_sm90"].items()))
     for kernel, t in time_flash(FLASH_MAIN, seed, dev).items():
         out[kernel].update(t)
     for name, case in timed.items():
-        out[name] = time_flash(case, seed, dev)
-        for kernel in (fa.SM90, fa.SIMT):
+        kernels = (fa.SM90,) if case in own[fa.SM90] else (fa.SM90, fa.SIMT)
+        out[name] = time_flash(case, seed, dev, kernels)
+        for kernel in kernels:
             out[name][kernel]["max_abs_err"] = errs[kernel, case]
             out[name][kernel]["planted_faults"] = \
                 caught[kernel, case]
@@ -4249,9 +4371,10 @@ def time_simt_float32(case, seed: int, dev) -> dict:
     return out
 
 
-def time_flash(case, seed: int, dev) -> dict:
-    """Both attention kernels at one bf16 shape (causal or not, windowed
-    and soft-capped as the case says), timed in turns with the library
+def time_flash(case, seed: int, dev, kernels=None) -> dict:
+    """Both attention kernels (or those in ``kernels``) at one bf16 shape
+    (causal or not, windowed and soft-capped as the case says), timed in
+    turns with the library
     call that computes the same function on the same tensors (the
     yardstick; the port never calls it), with the plain version's time
     and the bound; one dict per kernel.  The library call is
@@ -4278,12 +4401,12 @@ def time_flash(case, seed: int, dev) -> dict:
     else:
         def sdpa_call():
             return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
-    fns = {fa.SM90: lambda: fa.launch_kernel(fa.SM90, q, k, v, causal=causal,
-                                             window=window, cap=cap),
-           fa.SIMT: lambda: fa.launch_kernel(fa.SIMT, q, k, v, causal=causal,
-                                             window=window, cap=cap),
-           "library": flex_call(qt, kt, vt, causal, window, cap)
-           if cap else sdpa_call}
+    kernels = kernels or (fa.SM90, fa.SIMT)
+    fns = {kernel: (lambda kernel=kernel: fa.launch_kernel(
+        kernel, q, k, v, causal=causal, window=window, cap=cap))
+        for kernel in kernels}
+    fns["library"] = flex_call(qt, kt, vt, causal, window, cap) \
+        if cap else sdpa_call
     if cap:
         fns["sdpa"] = sdpa_call
     want = fa.flash_attention_reference(q, k, v, causal=causal,
@@ -4306,7 +4429,7 @@ def time_flash(case, seed: int, dev) -> dict:
             b2b[name].append(back_to_back_ms(fns[name], runs=20))
     ms = {name: statistics.median(t) for name, t in samples.items()}
     device_ms = {}
-    for kernel in (fa.SM90, fa.SIMT):
+    for kernel in kernels:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(10):
                 fns[kernel]()
@@ -4319,7 +4442,7 @@ def time_flash(case, seed: int, dev) -> dict:
     yardstick = ("flex_attention (compiled) with the softcap as score_mod"
                  if cap else "scaled_dot_product_attention")
     out = {}
-    for kernel in (fa.SM90, fa.SIMT):
+    for kernel in kernels:
         out[kernel] = {
             "ms": ms[kernel], "turns_ms": turns[kernel],
             "back_to_back_ms": b2b[kernel],
@@ -6554,8 +6677,14 @@ def main() -> int:
             fl["simt_float32_moe"] if kernel == fa.SIMT else None,
         "float32_vlm_shape":
             fl["simt_float32_vlm"] if kernel == fa.SIMT else None,
-        "edge_cases": len(FLASH_SIMT_EDGE) if kernel == fa.SIMT else None,
+        # the wgmma kernel's alone (the cap's cost)
+        "gemma_global_nocap_shape":
+            fl["gemma_global_nocap_shape"].get(kernel),
+        "edge_cases": len(FLASH_SIMT_EDGE if kernel == fa.SIMT
+                          else FLASH_SM90_EDGE),
         "sass": fl["sass"] if kernel == fa.SIMT else None,
+        # each wgmma instance's registers, stack, spills and wgmmas
+        "instances": fl["instances_sm90"] if kernel == fa.SM90 else None,
     } for name, kernel, source in (
         ("flash_attention_sm90", fa.SM90,
          "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"),

@@ -144,6 +144,45 @@ def test_flash_tile_edges_match_reference_kernel(case, dtype):
     """The port's plain version against the reference's Pallas kernel
     (64-row q and kv blocks, in interpret mode) at the geometry of the
     CUDA-core kernel's tile edges; rows with nothing visible give 0."""
+    check_tile_edge(case, dtype)
+
+
+#: the wgmma kernel's tile edges, in bf16, the only type it takes
+#: (tests/test_torch_card.py holds the kernel to the port's plain version
+#: at the same geometry): head_dims 16, 48, 64, 96, 128, 144, 160, 192,
+#: 208, 224 and 256 (each of its instances, at its own width and padded
+#: up to it), lengths 1, 63, 65, 127, 129, 191, 193, 257 and 1000 (under,
+#: at and past its 128- and 192-row q tiles and 64- to 128-row kv tiles),
+#: Sq != Sk causal and not, GQA 8:1, windows of 100, 200 and 300 that end
+#: inside a kv tile, the softcap with q times 24, and rows with nothing
+#: visible (window 5 over 65 keys)
+SM90_EDGE_GEOMETRY = [((1, 1, 1, 2, 1, 16), True, 0, 0.0),
+                      ((2, 63, 65, 8, 1, 48), True, 0, 0.0),
+                      ((1, 65, 63, 4, 2, 64), False, 0, 0.0),
+                      ((1, 127, 129, 4, 1, 96), False, 0, 0.0),
+                      ((1, 129, 1000, 8, 1, 128), False, 0, 0.0),
+                      ((1, 1000, 129, 4, 1, 144), True, 0, 0.0),
+                      ((1, 193, 191, 4, 2, 128), True, 0, 0.0),
+                      ((1, 257, 257, 4, 2, 160), True, 100, 0.0),
+                      ((1, 1000, 1000, 2, 1, 192), True, 200, 50.0),
+                      ((1, 129, 65, 4, 1, 208), True, 5, 0.0),
+                      ((1, 1000, 1000, 2, 1, 224), True, 300, 50.0),
+                      ((2, 257, 1000, 4, 2, 256), False, 0, 30.0)]
+
+
+@pytest.mark.parametrize("case", SM90_EDGE_GEOMETRY,
+                         ids=lambda c: "-".join(map(str, c[0])) +
+                         f"-causal{int(c[1])}-w{c[2]}-cap{c[3]:g}")
+def test_flash_wgmma_tile_edges_match_reference_kernel(case):
+    """The port's plain version against the reference's Pallas kernel
+    (in interpret mode) at the geometry of the wgmma kernel's tile edges;
+    rows with nothing visible give 0."""
+    check_tile_edge(case, "bfloat16")
+
+
+def check_tile_edge(case, dtype):
+    """One tile-edge case: the port against the reference, rows with
+    nothing visible 0."""
     shape, causal, window, cap = case
     (rq, rk, rv), (pq, pk, pv) = qkv(shape, dtype, sum(shape),
                                      CAP_Q_SCALE if cap else 1.0)

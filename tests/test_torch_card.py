@@ -9,7 +9,8 @@ with the plain version within the reference's own tolerances
 (``tests/test_kernels.py``: 2e-5 for float32, 2e-2 for bfloat16) at
 every case of that file it takes, at the serving shape and at the extra
 bf16 cases (pixtral-12b's head_dim 160, whisper-small's non-causal
-encoder, and gemma2-9b's and qwen2.5-14b's prefills among them), with
+encoder, and gemma2-9b's and qwen2.5-14b's prefills among them) and at
+its own tile edges (every instance of each kernel), with
 q scaled where a case has a softcap so that the cap matters, give 0 on
 fully masked rows, fail the same comparison when launched without the
 case's softcap or window, and refuse what it does not take, inputs that
@@ -239,7 +240,7 @@ def test_flash_kernel_matches_plain_version(card, case):
 #: the serving path's shape, and bf16 cases beyond the reference's: the
 #: decode check's 2049-token prefill, gemma2-9b's head_dim with its window
 #: and softcap, and rows with nothing visible; then pixtral-12b's prefill
-#: (head_dim 160, padded to 192 in the wgmma kernel), whisper-small's
+#: (head_dim 160, an instance of the wgmma kernel's own), whisper-small's
 #: encoder (non-causal over 1500 frames, not a multiple of the 64-row kv
 #: tile) and decoder prefill, and small non-causal cases with Sq != Sk and
 #: Sk not a multiple of 64
@@ -254,7 +255,7 @@ EXTRA_CASES = [SERVING,
                ((2, 100, 1500, 4, 4, 64), "bfloat16", False, 0, 0.0),
                ((1, 64, 130, 4, 2, 160), "bfloat16", False, 0, 0.0)]
 #: the prefills of phases 12a and 12b: gemma2-9b's 2 x 8192 tokens at
-#: head_dim 224 (padded to 256 in the wgmma kernel) with its softcap, on
+#: head_dim 224 (an instance of the wgmma kernel's own) with its softcap, on
 #: a local layer (window 4096) and a global one; qwen2.5-14b's GQA 40:8
 DENSE_CASES = [((2, 8192, 8192, 16, 8, 224), "bfloat16", True, 4096, 50.0),
                ((2, 8192, 8192, 16, 8, 224), "bfloat16", True, 0, 50.0),
@@ -278,10 +279,34 @@ SIMT_GEOMETRY = [((1, 1, 1, 2, 1, 1), True, 0, 0.0),
 SIMT_EDGE_CASES = [(shape, dtype, causal, window, cap)
                    for shape, causal, window, cap in SIMT_GEOMETRY
                    for dtype in ("float32", "bfloat16")]
+#: the wgmma kernel's tile edges, in bf16 (chip_smoke.FLASH_SM90_GEOMETRY):
+#: head_dims 16, 48, 64, 96, 128, 144, 160, 192, 208, 224 and 256 (every
+#: instance, at its own width and padded up to it), lengths 1, 63, 65,
+#: 127, 129, 191, 193, 257 and 1000 (under, at and past its 128- and
+#: 192-row q tiles and its 64- to 128-row kv tiles), Sq != Sk causal and
+#: not, GQA 8:1, windows of
+#: 100, 200 and 300 that end inside a kv tile, the softcap (q times
+#: CAP_Q_SCALE), and rows with nothing visible (window 5 over 65 keys,
+#: whose last block has no kv tile at all)
+SM90_GEOMETRY = [((1, 1, 1, 2, 1, 16), True, 0, 0.0),
+                 ((2, 63, 65, 8, 1, 48), True, 0, 0.0),
+                 ((1, 65, 63, 4, 2, 64), False, 0, 0.0),
+                 ((1, 127, 129, 4, 1, 96), False, 0, 0.0),
+                 ((1, 129, 1000, 8, 1, 128), False, 0, 0.0),
+                 ((1, 1000, 129, 4, 1, 144), True, 0, 0.0),
+                 ((1, 193, 191, 4, 2, 128), True, 0, 0.0),
+                 ((1, 257, 257, 4, 2, 160), True, 100, 0.0),
+                 ((1, 1000, 1000, 2, 1, 192), True, 200, 50.0),
+                 ((1, 129, 65, 4, 1, 208), True, 5, 0.0),
+                 ((1, 1000, 1000, 2, 1, 224), True, 300, 50.0),
+                 ((2, 257, 1000, 4, 2, 256), False, 0, 30.0)]
+SM90_EDGE_CASES = [(shape, "bfloat16", causal, window, cap)
+                   for shape, causal, window, cap in SM90_GEOMETRY]
 KERNEL_CASES = [(kernel, case)
                 for case in FLASH_CASES + EXTRA_CASES + DENSE_CASES
                 for kernel in (fa.SM90, fa.SIMT) if takes(kernel, case)] + \
-    [(fa.SIMT, case) for case in SIMT_EDGE_CASES]
+    [(fa.SIMT, case) for case in SIMT_EDGE_CASES] + \
+    [(fa.SM90, case) for case in SM90_EDGE_CASES]
 
 
 @pytest.mark.parametrize("kernel,case", KERNEL_CASES,
