@@ -25,6 +25,11 @@ use, as in the reference.  The MoE layer's
 both variants are the same computation.  ``cross_attention_layer``
 attends with ``naive`` always: the reference hard-codes it there, so it
 launches no kernel.
+
+``rms_norm``, ``apply_rope``, ``attention_core``, ``decode_attention``
+and ``moe_layer`` are spans of ``obs.spans`` (recorded only while a
+profiler records), and ``moe_layer`` counts its routed, kept and
+capacity slots there while a profiler records a serving call.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..obs import spans
 from ..runtime.sharding import (at_use, axis_size, is_dtensor, keep_whole,
                                 like, lshard, map_local_heads, shard_block)
 from .config import ModelConfig
@@ -51,6 +57,7 @@ Layout = Dict[str, object]
 
 
 # --------------------------------------------------------------------- norms
+@spans.span("rms_norm")
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
     dt = x.dtype
     x = x.float()
@@ -78,6 +85,7 @@ def rope_freqs(head_dim: int, theta: float, device=None):
                                    device=device) / half)
 
 
+@spans.span("rope")
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     """x: (B, S, H, D); positions: (B, S) int.  Rotates the two halves of
     the head dim (not interleaved pairs), as the reference does."""
@@ -223,6 +231,7 @@ def attention_core_blockwise(q, k, v, q_pos, k_pos, *, causal=True, window=0,
     return out[:, :Sq].to(q.dtype)
 
 
+@spans.span("attention_core")
 def attention_core(q, k, v, q_pos, k_pos, impl="naive", **kw):
     if impl != "flash" and is_dtensor(q):
         # each rank's batch and heads, with its q heads' kv heads
@@ -377,6 +386,7 @@ def cross_attention_layer(p, x, enc_kv, cfg: ModelConfig):
     return out @ at_use(p["wo"], x.dtype)
 
 
+@spans.span("decode_attention")
 def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig,
                      window=0):
     """Single-token decode: x (B,1,D), cache (B,Skv,KV,hd), pos (B,) int.
@@ -746,12 +756,14 @@ def moe_combine(out_buf, route: MoeRoute):
     return _combine_rows(out_buf, *args)
 
 
+@spans.span("moe_layer")
 def moe_layer(p, x, cfg: ModelConfig, capacity: Optional[int] = None):
     """Scatter dispatch into per-expert capacity buffers (groups = batch
     rows) -> expert FFN -> weighted combine.  x: (B,S,D).
     Returns (out, aux_loss)."""
     C = capacity or moe_capacity(cfg, x.shape[1])
     route = moe_route(p, x, cfg, C)
+    spans.count_moe_slots(route.keep, cfg.n_experts, C)
     buf = moe_dispatch(x, route, cfg.n_experts, C)
     # the reference's (B, E, C, D) buffer annotations, on the port's
     # expert-major (E, B, C, D): with ``replicated_buf`` the scatter stays

@@ -15,6 +15,9 @@ Prefill and decode round as the reference's do, which is not alike: the
 prefill's convolution is K shifted multiply-adds and its skip term is
 taken in the activations' type; decode's convolution is one product over
 the window and its skip term is fp32.
+
+``ssd_layer`` is a span of ``obs.spans`` (recorded only while a profiler
+records).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..obs import spans
 from ..runtime.sharding import (_local_kv, at_use, is_dtensor, like, lshard,
                                 shard_block)
 from .config import ModelConfig
@@ -172,6 +176,7 @@ def _scan(xh, dt, A, Bm, Cm, chunk: int,
     return y[:, :S_in], state
 
 
+@spans.span("ssd_layer")
 def ssd_layer(p, x, cfg: ModelConfig, cache: Optional[dict] = None,
               return_cache: bool = False):
     """Full-sequence SSD block: (B,S,D) -> (B,S,D).

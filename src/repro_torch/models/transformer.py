@@ -44,6 +44,10 @@ layers cast them at use.
 ``torch.utils.checkpoint`` (non-reentrant), one checkpoint per layer
 where the reference wraps its scan body in ``jax.checkpoint``; the
 reference's policies map by name (``REMAT_POLICIES``).
+
+``prefill`` and ``decode_step`` are the root spans of ``obs.spans``
+(recorded only while a profiler records): every layer span of a serving
+step nests inside one of them.
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..obs import spans
 from ..runtime.sharding import (at_use, current_rules, full,
                                 grad_placed_as, is_dtensor, keep_whole, like,
                                 lshard, use_rules,
@@ -611,6 +616,7 @@ def _max_pos(cache: List) -> int:
     return 4096
 
 
+@spans.span("decode_step")
 def decode_step(params, cfg: ModelConfig, token, cache, pos):
     """One decode step.  token (B,1) int; pos (B,) int = position of
     this token.  Returns (logits (B,1,V) f32, cache); the cache tensors
@@ -643,6 +649,7 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos):
     return _unembed(params, cfg, x), new_cache
 
 
+@spans.span("prefill")
 def prefill(params, cfg: ModelConfig, tokens, *, frames=None,
             image_embeds=None, max_seq: Optional[int] = None, impl="naive"):
     """Run the full prompt, return (logits_last (B,V), cache) with the KV

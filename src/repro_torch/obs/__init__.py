@@ -12,6 +12,10 @@ Three layers, each owning a different kind of signal:
 - :mod:`repro_torch.obs.exporter` / :mod:`repro_torch.obs.dashboard` —
   the edges: a Prometheus-text HTTP endpoint, a Ganglia-shaped pusher,
   and a ``top``-style terminal view.
+
+:mod:`repro_torch.obs.spans` observes the model path instead: spans
+kept as ``torch.profiler`` events while a profiler records, and the MoE
+layers' slot counters of the serving calls made meanwhile.
 """
 
 from .registry import (          # noqa: F401

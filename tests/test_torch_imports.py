@@ -51,6 +51,7 @@ def test_every_port_module_is_listed():
                  "repro_torch.core.federation", "repro_torch.obs",
                  "repro_torch.obs.registry", "repro_torch.obs.exporter",
                  "repro_torch.obs.aggregator", "repro_torch.obs.dashboard",
+                 "repro_torch.obs.spans",
                  "repro_torch.policy", "repro_torch.policy.mirror",
                  "repro_torch.policy.engine",
                  "repro_torch.policy.reconciler",
