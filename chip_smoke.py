@@ -59,7 +59,24 @@ Phases, in order; any failed check exits nonzero and prints no result:
             counted by opcode, and checked and timed in float32 at the
             shapes of phases 5, 9 and 11 (head_dims 128, 64 and 160),
             against SDPA in float32 and its bound at the card's float32
-            CUDA-core rate;
+            CUDA-core rate; the decode kernel (``decode_attn_kernel``,
+            with ``decode_attn_merge_kernel`` where it splits) through
+            ``decode_attention_bshd`` at granite-8b's benchmark cell (32
+            sequences over 4224 slots) and at the decode shape of every
+            served family (``DECODE_FAMILIES``: gemma2-9b's ring after it
+            wrapped and its global layer, both with the softcap), at
+            per-sequence positions, at its own split count and at one
+            split, within the card tests' tolerance of its plain version
+            (launched without gemma2's softcap it must fail that check),
+            launches counted by the wrapper and on the card; each shape
+            timed by CUDA events in turns with
+            ``scaled_dot_product_attention`` (``enable_gqa``, the same
+            boolean mask; without gemma2's softcap), with the plain
+            version's time, the model's former path's
+            (``attention_core_naive``), the profiler's device time of
+            both kernels and the bound by bytes (the cache read once);
+            and the split counts 1 to 12 timed at the cell's traffic for
+            granite-8b (4 heads a block) and qwen3-moe (8);
 4. main     the sharded changelog pipeline end to end: 4 MDT journals x
             262,144 records routed by ``LcapCluster(device="cuda")`` to
             4 shards, two consumer groups and an ephemeral reader
@@ -77,7 +94,9 @@ Phases, in order; any failed check exits nonzero and prints no result:
             kernels' own counts on the card; the profiler's kernel names,
             which can lose a record, at most as many; no ``fid_slots``
             launch), 16 tokens
-            generated, the LCAP invalidation loop over 2 replicas; then
+            generated (one decode-kernel launch per layer a step, by the
+            wrapper's count and the kernel's own, as in every serving
+            phase), the LCAP invalidation loop over 2 replicas; then
             5 warm calls of the launcher, whose medians are the phase's
             prefill and decode times (as in every serving phase);
             flash-vs-naive and prefill/decode consistency of the logits;
@@ -628,6 +647,33 @@ HYBRID_ARCH = "jamba-v0.1-52b"
 HYBRID_CUT = "one period; four-stage pipeline"
 HYBRID_PARAMS = 13_267_656_416
 HYBRID_WEIGHT_BYTES = 26_535_687_296
+#: phase 3: the decode kernel at each served family's decode shape:
+#: (tag, arch, sequences, prompt tokens, generated tokens, layer).  The
+#: cache holds prompt + generated slots (a ring of the window on a local
+#: layer), timed at the last position it holds and checked at per-sequence
+#: positions up to 127 below it.  First granite-8b's benchmark cell (32
+#: sessions of a 4096-token prompt and 128 generated), then the serving
+#: phases' traffic (the jamba stage's one attention layer has granite-8b's
+#: shape), and starcoder2-3b's grouping of 12 (two blocks of 6)
+DECODE_FAMILIES = (
+    ("cell", SERVE_ARCH, 32, 4096, 128, "global"),
+    ("serve", SERVE_ARCH, SERVE_B, SERVE_P, SERVE_G, "global"),
+    ("moe", MOE_ARCH, SERVE_B, SERVE_P, SERVE_G, "global"),
+    ("vlm", VLM_ARCH, SERVE_B, SERVE_P, SERVE_G, "global"),
+    ("audio", AUDIO_ARCH, SERVE_B, AUDIO_P, SERVE_G, "global"),
+    ("gemma_local", GEMMA_ARCH, GEMMA_B, GEMMA_P, SERVE_G, "local"),
+    ("gemma_global", GEMMA_ARCH, GEMMA_B, GEMMA_P, SERVE_G, "global"),
+    ("qwen", QWEN_ARCH, SERVE_B, SERVE_P, SERVE_G, "global"),
+    ("starcoder2", TRAIN_ARCH, SERVE_B, SERVE_P, SERVE_G, "global"))
+#: the split counts timed at the cell's traffic, and the families timed
+#: there (granite-8b's 4 heads a block, qwen3-moe's 8)
+DECODE_SPLITS = (1, 2, 3, 4, 5, 6, 8, 12)
+DECODE_SWEEP = (("cell", SERVE_ARCH), ("moe_cell", MOE_ARCH))
+#: the card tests' tolerances of the decode kernel against its plain
+#: version: the same float32 sums in another order; in bf16 both round
+#: the same float32 result once
+DECODE_TOL = {"float32": dict(rtol=5e-5, atol=5e-5),
+              "bfloat16": dict(rtol=2 ** -7, atol=1e-5)}
 #: the serving phases' tags, whose records phase 14 bounds
 SERVE_TAGS = ("serve", "moe", "ssm", "hybrid", "vlm", "audio", "gemma",
               "qwen")
@@ -4515,6 +4561,244 @@ def flex_call(qt, kt, vt, causal: bool, window: int, cap: float):
     return call
 
 
+# ---------------------------------------------- phase 3: decode attention
+def decode_case(tag: str, arch: str, B: int, P: int, G: int,
+                layer: str) -> dict:
+    """A row of ``DECODE_FAMILIES`` as the decode kernel sees it: the
+    shape ``(B, slots, KV, G, D)``, window, ring and softcap of the
+    family's config, and the newest position the cache holds."""
+    from repro_torch import configs as C
+    cfg = C.get_config(arch)
+    KV = cfg.n_kv_heads
+    window = cfg.sliding_window if layer == "local" else 0
+    slots = min(P + G, window) if window else P + G
+    return {"tag": tag, "arch": arch, "layer": layer,
+            "shape": (B, slots, KV, cfg.n_heads // KV,
+                      cfg.resolved_head_dim),
+            "window": window, "ring": bool(window) and slots == window,
+            "cap": float(cfg.attn_softcap), "last": P + G - 1}
+
+
+def decode_inputs(case: dict, seed: int, dev, per_sequence: bool):
+    """q, the caches (bf16, from N(0, 1); q times ``CAP_Q_SCALE`` with a
+    softcap, so that the cap matters) and the positions: every sequence
+    at the case's last, or each up to 127 below it."""
+    B, S, KV, G, D = case["shape"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(s, generator=gen, device=dev)
+               for s in ((B, 1, KV * G, D), (B, S, KV, D), (B, S, KV, D)))
+    if case["cap"]:
+        q = q * CAP_Q_SCALE
+    last = case["last"]
+    pos = [max(last - (b * 37) % 128, 0) if per_sequence else last
+           for b in range(B)]
+    return (q.bfloat16(), k.bfloat16(), v.bfloat16(),
+            torch.tensor(pos, dtype=torch.int32, device=dev))
+
+
+def decode_kw(case: dict) -> dict:
+    return dict(window=case["window"], ring=case["ring"], cap=case["cap"])
+
+
+def decode_splits(case: dict) -> int:
+    from repro_torch.kernels import decode_attention as da
+    B, S, KV, G, _D = case["shape"]
+    return da.splits_for(B, KV, G, S, case["window"])
+
+
+def decode_check(case: dict, seed: int, dev) -> dict:
+    """The kernel at per-sequence positions against its plain version,
+    through the wrapper (its own split count) and at one split, within
+    ``DECODE_TOL``; with a softcap, launched without it, the share of
+    elements beyond that tolerance (must be above 0)."""
+    from repro_torch.kernels import decode_attention as da
+    q, k, v, pos = decode_inputs(case, seed, dev, per_sequence=True)
+    kw, splits = decode_kw(case), decode_splits(case)
+    tol = DECODE_TOL["bfloat16"]
+    scale = case["shape"][4] ** -0.5
+    errs, wants = {}, {}
+    for n in (splits, 1):
+        got = (da.decode_attention_bshd(q, k, v, pos, **kw) if n == splits
+               else da._launch(q, k, v, pos.long(), case["window"],
+                               case["ring"], case["cap"], scale, 1))
+        wants[n] = da.decode_attention_reference(q, k, v, pos, splits=n,
+                                                 **kw).float()
+        err = float((got.float() - wants[n]).abs().max())
+        check(bool(torch.isclose(got.float(), wants[n], **tol).all()),
+              f"decode {case['tag']}: the kernel at {n} splits is "
+              f"{err:.3g} from its plain version, beyond {tol}")
+        errs[n] = err
+    out = {"max_abs_err": errs[splits], "max_abs_err_one_split": errs[1],
+           "splits": splits}
+    if case["cap"]:
+        got = da._launch(q, k, v, pos, case["window"], case["ring"], 0.0,
+                         scale, splits).float()
+        share = float((~torch.isclose(got, wants[splits], **tol))
+                      .float().mean())
+        check(share > 0, f"decode {case['tag']}: launched without the "
+              "softcap, the kernel still passes the check")
+        out["without_cap_share_beyond_tol"] = share
+    return out
+
+
+def time_decode(case: dict, seed: int, dev) -> dict:
+    """The wrapper at the case's last position, timed by CUDA events in
+    turns with ``scaled_dot_product_attention`` over the same slots (a
+    boolean mask, ``enable_gqa``; without the softcap, which it cannot
+    take), with the profiler's device time of each kernel, the plain
+    version's time, the model's former path's (``attention_core_naive``
+    over ``_decode_k_pos``, float32) and the bound: the visible cache,
+    q and the output moved once at HBM's rate.  Its ``ms`` is the mean of
+    two runs of 50 calls back to back between two events (as a decode
+    step enqueues them); ``per_launch_ms``, a call between its own two
+    events, adds the host's cost of launching it and the merge."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import layers as L
+    q, k, v, pos = decode_inputs(case, seed, dev, per_sequence=False)
+    B, S, KV, G, D = case["shape"]
+    kw, window, cap = decode_kw(case), case["window"], case["cap"]
+    lo, hi = da._visible(pos, S, window, case["ring"])
+    slot = torch.arange(S, device=dev)[None, :]
+    mask = ((slot >= lo[:, None]) & (slot <= hi[:, None]))[:, None, None]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fns = {"kernel": lambda: da.decode_attention_bshd(q, k, v, pos, **kw),
+           "library": lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                   enable_gqa=True)}
+    want = da.decode_attention_reference(q, k, v, pos, splits=1,
+                                         **kw).float()
+    lib_err = None if cap else float(
+        (fns["library"]().transpose(1, 2).float() - want).abs().max())
+    samples = {name: [] for name in fns}
+    turns = {name: [] for name in fns}
+    b2b = {name: [] for name in fns}
+    for order in (("kernel", "library"), ("library", "kernel")):
+        for name in order:
+            times = cuda_times_ms(fns[name], runs=20)
+            samples[name] += times
+            turns[name].append(statistics.median(times))
+            b2b[name].append(back_to_back_ms(fns[name], runs=50))
+    per_launch = {name: statistics.median(t) for name, t in samples.items()}
+    ms = {name: statistics.mean(t) for name, t in b2b.items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fns["kernel"]()
+        torch.cuda.synchronize()
+    seen = {"kernel": kernel_count(prof, "decode_attn_kernel"),
+            "merge": kernel_count(prof, "decode_attn_merge_kernel")}
+    plain_ms = cuda_median_ms(lambda: da.decode_attention_reference(
+        q, k, v, pos, splits=decode_splits(case), **kw), runs=5)
+    k_pos = L._decode_k_pos(pos, 0, S, S, window)
+    former_ms = cuda_median_ms(lambda: L.attention_core_naive(
+        q, k, v, pos[:, None], k_pos, causal=True, window=0, cap=cap),
+        runs=5)
+    visible = int((hi - lo + 1).clamp(min=0).sum())
+    nbytes = 2 * D * (2 * KV * visible + 2 * B * KV * G)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {"shape": list(case["shape"]), "dtype": "bfloat16",
+           "window": window, "ring": case["ring"], "cap": cap,
+           "pos": case["last"], "ms": ms["kernel"],
+           "back_to_back_ms": b2b["kernel"],
+           "per_launch_ms": per_launch["kernel"],
+           "turns_ms": turns["kernel"],
+           # a CUDA trace can lose records: each kernel's time over the
+           # launches the profiler saw of it (10 calls)
+           "device_ms": device_busy_ms(prof, "decode_attn_kernel")
+           / max(seen["kernel"], 1),
+           "merge_device_ms": device_busy_ms(prof, "decode_attn_merge_kernel")
+           / max(seen["merge"], 1),
+           "profiled_launches": seen,
+           "plain_ms": plain_ms, "former_path_ms": former_ms,
+           "library_ms": ms["library"],
+           "library_back_to_back_ms": b2b["library"],
+           "library_per_launch_ms": per_launch["library"],
+           "library_call": "scaled_dot_product_attention (enable_gqa, "
+                           "boolean mask" + (", without the softcap)"
+                                             if cap else ")"),
+           "library_max_abs_diff": lib_err,
+           "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes,
+           "share_of_bound": bound_ms / ms["kernel"]}
+    del q, k, v, qt, kt, vt, mask, want, fns
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_split_sweep(case: dict, seed: int, dev) -> dict:
+    """The kernel at each of ``DECODE_SPLITS`` at the case's last
+    position, 50 launches back to back between two CUDA events (the merge
+    included), beside ``splits_for``'s choice."""
+    from repro_torch.kernels import decode_attention as da
+    q, k, v, pos = decode_inputs(case, seed, dev, per_sequence=False)
+    scale = case["shape"][4] ** -0.5
+    ms = {n: back_to_back_ms(
+        lambda n=n: da._launch(q, k, v, pos, case["window"], case["ring"],
+                               case["cap"], scale, n), runs=50)
+        for n in DECODE_SPLITS}
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"shape": list(case["shape"]), "ms_by_splits": ms,
+            "splits_for": decode_splits(case),
+            "best": min(ms, key=ms.get)}
+
+
+def decode_phase(seed: int) -> dict:
+    """Phase 3's decode half: ``decode_check`` and ``time_decode`` at
+    every row of ``DECODE_FAMILIES``, ``decode_split_sweep`` at the
+    cell's traffic for the rows of ``DECODE_SWEEP``, and the phase's
+    launches by the wrapper's count against the kernel's own."""
+    from repro_torch.kernels import decode_attention as da
+    dev = DEVICE
+    da.launches = 0
+    da.device_launches(reset=True)
+    out = {"cases": {}}
+    for i, row in enumerate(DECODE_FAMILIES):
+        case = decode_case(*row)
+        r = dict(decode_check(case, seed + i, dev), arch=case["arch"],
+                 layer=case["layer"])
+        r.update(time_decode(case, seed + i, dev))
+        out["cases"][case["tag"]] = r
+        log(f"kernels: decode_attn_kernel at {case['tag']} ({case['arch']}, "
+            f"{case['layer']} layer) B={r['shape'][0]} S={r['shape'][1]} "
+            f"KV={r['shape'][2]} G={r['shape'][3]} D={r['shape'][4]} "
+            f"window={r['window']} ring={r['ring']} cap={r['cap']:g} "
+            f"pos={r['pos']}, {r['splits']} splits: {r['ms']:.6f} ms "
+            f"(CUDA events, 50 calls back to back, twice: "
+            f"{r['back_to_back_ms'][0]:.6f} / {r['back_to_back_ms'][1]:.6f};"
+            f" a call between its own events {r['per_launch_ms']:.6f}, turn "
+            f"medians {r['turns_ms'][0]:.6f} / {r['turns_ms'][1]:.6f}; "
+            f"profiler: kernel {r['device_ms']:.6f}, merge "
+            f"{r['merge_device_ms']:.6f}, launches seen of 10 "
+            f"{r['profiled_launches']}), bound {r['bound_ms']:.6f} ms by "
+            f"bytes ({r['bytes'] / 1e6:.3f} MB), {r['share_of_bound']:.3f} "
+            f"of it; plain version {r['plain_ms']:.6f} ms, former path "
+            f"{r['former_path_ms']:.6f} ms, {r['library_call']} "
+            f"{r['library_ms']:.6f} ms back to back "
+            f"({r['library_per_launch_ms']:.6f} a call; max |diff| to the "
+            "plain version "
+            f"{r['library_max_abs_diff']}); max |err| to the plain version "
+            f"{r['max_abs_err']:.3g} ({r['max_abs_err_one_split']:.3g} at "
+            f"one split)"
+            + (f"; without the softcap {r['without_cap_share_beyond_tol']:.4f}"
+               " of elements beyond the tolerance" if r["cap"] else ""))
+    out["split_sweep"] = {}
+    for tag, arch in DECODE_SWEEP:
+        sw = decode_split_sweep(decode_case(tag, arch, 32, 4096, 128,
+                                            "global"), seed, dev)
+        out["split_sweep"][tag] = sw
+        log(f"kernels: decode_attn_kernel by split count at {tag} "
+            f"({arch}, {sw['shape']}), ms back to back: "
+            + ", ".join(f"{n} {t:.6f}" for n, t in sw["ms_by_splits"].items())
+            + f"; splits_for {sw['splits_for']}, best {sw['best']}")
+    on_card = da.device_launches()
+    check(on_card == da.launches, f"decode phase: {da.launches} launches by "
+          f"the wrapper's count, {on_card} by the kernel's own")
+    out.update({"launches": da.launches, "device_launches": on_card})
+    log(f"kernels: decode_attn_kernel launches in the phase: {da.launches} "
+        f"by the wrapper, {on_card} counted on the card")
+    return out
+
+
 # ------------------------------------------------------------ phase 5: serve
 def serve_phase(seed: int, smi: str) -> dict:
     from repro_torch.kernels import flash_attention as fa
@@ -4529,6 +4813,8 @@ def serve_phase(seed: int, smi: str) -> dict:
     res.update(serve_numbers(out))
     res.update(warm_serve(cfg, params, tokens, res, "serve", smi))
     res.update({"attention_launches": launches,
+                "decode_attention_launches":
+                    out["decode_attention_launches"],
                 "fid_slots_launches": slot_launches,
                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
     log(f"serve: prefill {SERVE_B} x {P} tokens {res['prefill_ms']:.3f} ms "
@@ -5252,14 +5538,19 @@ def serve_family(cfg, params, tokens, n_attn: int, tag: str, extras=None,
     attention layer, ``n_noncausal`` of them without a causal mask, by
     window as ``windows`` maps a window to its calls (all of them with
     none by default), and none of the CUDA-core kernel) and of the
-    ``fid_slots`` kernel (none: serving routes no records), finite
-    logits, well-formed tokens and phase 5's invalidation counts.
-    Returns the run's output, the attention launches by kernel and the
-    ``fid_slots`` launches."""
+    ``fid_slots`` kernel (none: serving routes no records), launches of
+    the decode kernel counted from 0 by the wrapper and on the card (one
+    per causal attention layer a decode step), finite logits, well-formed
+    tokens and phase 5's invalidation counts.  Returns the run's output
+    (with ``decode_attention_launches``), the attention launches by
+    kernel and the ``fid_slots`` launches."""
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa, stream_ops
     from repro_torch.launch import serve as S
     fa.launches = fa.launches_sm90 = fa.launches_simt = 0
     stream_ops.launches = 0
+    da.launches = 0
+    da.device_launches(reset=True)
     with MaskTally() as masks:
         out = S.serve(cfg, params, tokens, extras=extras, gen_len=SERVE_G,
                       replicas=SERVE_REPLICAS)
@@ -5279,6 +5570,13 @@ def serve_family(cfg, params, tokens, n_attn: int, tag: str, extras=None,
     out["noncausal_launches"] = {fa.SM90: masks.calls[False], fa.SIMT: 0}
     out["launches_by_window"] = {fa.SM90: masks.windows, fa.SIMT: {}}
     check(slots == 0, f"{tag}: {slots} fid_slots launches while serving")
+    decode = {"wrapper": da.launches, "on_card": da.device_launches()}
+    per_step = n_attn - n_noncausal
+    want = per_step * out["decode_steps"]
+    check(decode == {"wrapper": want, "on_card": want},
+          f"{tag}: decode-kernel launches {decode}, not {want} "
+          f"({per_step} self-attention layers x {out['decode_steps']} steps)")
+    out["decode_attention_launches"] = decode
     logits, gen = out["prefill_logits"], out["generated"]
     B = tokens.shape[0]
     check(bool(torch.isfinite(logits).all()), f"{tag}: logits not finite")
@@ -5613,6 +5911,8 @@ def routed_phase(arch: str, tag: str, seed: int, smi: str, cfg=None,
     res.update(serve_numbers(out))
     res.update(warm_serve(cfg, params, tokens, res, tag, smi))
     res.update({"attention_launches": launches,
+                "decode_attention_launches":
+                    out["decode_attention_launches"],
                 "fid_slots_launches": slot_launches,
                 "peak_memory_gb": peak_gb,
                 "capacity": L.moe_capacity(cfg, P),
@@ -5785,6 +6085,8 @@ def ssm_phase(seed: int, smi: str) -> dict:
     res.update(serve_numbers(out))
     res.update(warm_serve(cfg, params, tokens, res, "ssm", smi))
     res.update({"attention_launches": launches,
+                "decode_attention_launches":
+                    out["decode_attention_launches"],
                 "fid_slots_launches": slot_launches,
                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
                 "weights_read_ms": res["weight_bytes"] / HBM_BYTES_PER_S
@@ -5938,6 +6240,8 @@ def family_phase(arch: str, batch_size: int, prompt_len: int, n_attn: int,
         n_noncausal=n_noncausal, windows=windows)
     res.update(serve_numbers(out, P))
     res.update({"attention_launches": launches,
+                "decode_attention_launches":
+                    out["decode_attention_launches"],
                 "noncausal_launches": out["noncausal_launches"],
                 "launches_by_window": out["launches_by_window"],
                 "fid_slots_launches": slot_launches,
@@ -6521,8 +6825,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch import configs as C
     from repro_torch.kernels import _build, flash_attention as fa, stream_ops
+    from repro_torch.kernels import decode_attention as da
     t0 = time.perf_counter()
-    built = _build.build(stream_ops.SOURCE, *fa.SOURCES, verbose=True)
+    built = _build.build(stream_ops.SOURCE, *fa.SOURCES, da.SOURCE,
+                         verbose=True)
     for lib, seconds in built:
         log(f"build: {lib.name} in {seconds:.3f} s")
     log(f"build: {len(built)} sources in {time.perf_counter() - t0:.3f} s "
@@ -6541,6 +6847,7 @@ def main() -> int:
 
     k = timed("kernels", kernel_phase, args.seed)
     fl = timed("flash", flash_phase, args.seed)
+    dk = timed("decode", decode_phase, args.seed)
     main = timed("main", main_path_phase, args.seed)
     sv = timed("serve", serve_phase, args.seed, smi)
     wire = timed("wire", wire_phase, args.seed, smi)
@@ -6690,6 +6997,43 @@ def main() -> int:
          "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"),
         ("flash_attention", fa.SIMT,
          "src/repro_torch/kernels/csrc/flash_attention.cu"))]}
+    cell = dk["cases"]["cell"]
+    serving = {"serve": sv, "moe": mo, "ssm": sm, "hybrid": hy, "vlm": vl,
+               "audio": au, "gemma": gm, "qwen": qw}
+    kernels["kernels"].append({
+        "name": "decode_attn_kernel",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        # no TPU kernel: the reference's decode attention is jnp einsums
+        # that XLA fuses
+        "replaces": None,
+        "reference": "src/repro/models/layers.py:104",
+        "launches": sv["decode_attention_launches"]["wrapper"],
+        # each serving phase's own run, counted from 0 by the wrapper and
+        # on the card
+        "launches_by_phase": {tag: r["decode_attention_launches"]
+                              for tag, r in serving.items()},
+        "phase_launches": {"wrapper": dk["launches"],
+                           "on_card": dk["device_launches"]},
+        "max_abs_err": cell["max_abs_err"],
+        # 50 calls back to back between two CUDA events, twice (the
+        # merge included); per_launch_ms adds the host's launch cost
+        "ms": cell["ms"], "per_launch_ms": cell["per_launch_ms"],
+        "plain_ms": cell["plain_ms"],
+        "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"],
+        "library_ms": cell["library_ms"],
+        "library_call": cell["library_call"],
+        "former_path_ms": cell["former_path_ms"],
+        "device_ms": cell["device_ms"],
+        "merge_device_ms": cell["merge_device_ms"],
+        "profiled_launches": cell["profiled_launches"],
+        "bytes": cell["bytes"], "splits": cell["splits"],
+        "shape": "q (32, 1, 32, 128), k/v (32, 4224, 8, 128) bf16, pos 4223",
+        "cases": len(dk["cases"]),
+        "by_family": {tag: r for tag, r in dk["cases"].items()
+                      if tag != "cell"},
+        "split_sweep": dk["split_sweep"],
+    })
     kernels["main_path"] = {"records": N_MDTS * RECORDS_PER_MDT,
                             "seconds": main["seconds"],
                             "records_per_s": main["records_per_s"],

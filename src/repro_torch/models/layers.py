@@ -6,7 +6,9 @@ SSD block).
 Everything takes explicit parameter dicts of tensors.  Attention has
 three interchangeable implementations with the same math:
 
-- ``naive``     — materializes the (…, Sq, Sk) scores; CPU tests, decode.
+- ``naive``     — materializes the (…, Sq, Sk) scores; CPU tests, decode
+                  on the CPU (decode on the card takes the split-KV
+                  kernel of ``kernels/decode_attention.py``).
 - ``blockwise`` — flash-style streaming over kv blocks with a running
                   log-sum-exp, as Python loops over blocks.
 - ``flash``     — the hand-written CUDA kernel (``kernels/ops.py``); the
@@ -42,6 +44,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..kernels.decode_attention import decode_attention_bshd
 from ..obs import spans
 from ..runtime.sharding import (at_use, axis_size, is_dtensor, keep_whole,
                                 like, lshard, map_local_heads, shard_block)
@@ -395,6 +398,9 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig,
     slots (slot j holds the newest position p with p % window == j) —
     the cache read per step is O(window), not O(context).  The new k/v
     row is written into the cache tensors in place (``_cache_insert``).
+    On CUDA tensors the attention over the cache is the hand-written
+    kernel (``kernels.decode_attention``); elsewhere
+    ``attention_core_naive``.
     Returns (out (B,1,D), cache_k, cache_v)."""
     B = x.shape[0]
     S_slot = cache_k.shape[1]
@@ -406,13 +412,19 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig,
             q, k, v, cache_k, cache_v, pos, window=window,
             cap=cfg.attn_softcap)
     else:
-        write_pos = pos % S_slot if _is_ring(window, S_slot) else pos
+        ring = _is_ring(window, S_slot)
+        write_pos = pos % S_slot if ring else pos
         cache_k = _cache_insert(cache_k, k, write_pos)
         cache_v = _cache_insert(cache_v, v, write_pos)
-        out = attention_core_naive(
-            q, cache_k, cache_v, pos[:, None],
-            _decode_k_pos(pos, 0, S_slot, S_slot, window), causal=True,
-            window=0, cap=cfg.attn_softcap)
+        if q.device.type == "cuda":
+            out = decode_attention_bshd(q, cache_k, cache_v, pos,
+                                        window=window, ring=ring,
+                                        cap=cfg.attn_softcap)
+        else:
+            out = attention_core_naive(
+                q, cache_k, cache_v, pos[:, None],
+                _decode_k_pos(pos, 0, S_slot, S_slot, window), causal=True,
+                window=0, cap=cfg.attn_softcap)
     out = out.reshape(B, 1, -1)
     return out @ at_use(p["wo"], x.dtype), cache_k, cache_v
 

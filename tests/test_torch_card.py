@@ -16,7 +16,14 @@ fully masked rows, fail the same comparison when launched without the
 case's softcap or window, and refuse what it does not take, inputs that
 need a gradient included.  A decode step of gemma2-9b at full width and two
 layers, after its local layer's 4096-slot ring has wrapped, must agree
-with a prefill one token longer within 0.12 (phase 12a).  The activity
+with a prefill one token longer within 0.12 (phase 12a).  The decode
+kernel (``decode_attention_bshd`` on CUDA tensors) must agree with its
+plain version, at its own split count and at one split, at granite-8b's
+decode cell and at the decode shapes of gemma2-9b (its ring wrapped, with
+the softcap), qwen3-moe, whisper-small and pixtral-12b, in float32 and
+bf16; and a smoke decode step must launch it once a layer, by the
+wrapper's count and the kernel's own, its logits within 0.12 of the CPU's.
+The activity
 consumers of ``chip_smoke.py``'s phase 7 over a cluster routing on the
 card must end in the state they reach over one routing on the CPU, so
 must phase 7a's elastic scenario and two-filesystem federation (the
@@ -400,6 +407,109 @@ def test_flash_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError):
         fa.flash_attention_bshd(off, off, off)
     assert fa.launches == before
+
+
+#: the decode kernel's cases: (B, S, KV, G, D), dtype, window, ring, cap,
+#: positions.  granite-8b's decode cell (32 x 4224 slots, positions
+#: 4096-4223); gemma2-9b's local layer after its 4096-slot ring wrapped,
+#: with its softcap (q times CAP_Q_SCALE); qwen3-moe's D 64 at G 8;
+#: whisper-small's decoder (224 slots, G 1); pixtral-12b's D 160; then
+#: float32 at D 128 and at D 256 with G 5 (qwen2.5-14b's grouping), a
+#: window over a linear cache, bf16 rows off 16 bytes (D 20), G 12 in two
+#: chunks (starcoder2-3b's grouping), and a ring before it wraps
+DECODE_CASES = [
+    ((32, 4224, 8, 4, 128), "bfloat16", 0, False, 0.0,
+     [4096 + i * 37 % 128 for i in range(32)]),
+    ((2, 4096, 8, 2, 224), "bfloat16", 4096, True, 50.0, [8192, 5000]),
+    ((4, 2176, 4, 8, 64), "bfloat16", 0, False, 0.0, [2048, 2100, 2175, 7]),
+    ((4, 224, 12, 1, 64), "bfloat16", 0, False, 0.0, [223, 100, 0, 57]),
+    ((4, 2176, 8, 4, 160), "bfloat16", 0, False, 0.0, [2175, 2048, 1, 999]),
+    ((4, 1000, 8, 4, 128), "float32", 0, False, 0.0, [999, 500, 3, 640]),
+    ((2, 700, 8, 5, 256), "float32", 0, False, 30.0, [699, 300]),
+    ((3, 3000, 2, 4, 128), "bfloat16", 1000, False, 0.0, [2999, 500, 1500]),
+    ((2, 300, 2, 2, 20), "bfloat16", 0, False, 0.0, [299, 10]),
+    ((2, 600, 2, 12, 128), "bfloat16", 0, False, 0.0, [599, 333]),
+    ((3, 8, 2, 2, 16), "bfloat16", 8, True, 0.0, [0, 3, 7]),
+]
+
+
+def decode_case_id(case):
+    (B, S, KV, G, D), dtype, window, ring, cap, _ = case
+    return (f"B{B}-S{S}-KV{KV}-G{G}-D{D}-{dtype}-w{window}"
+            f"{'-ring' if ring else ''}{f'-cap{cap:g}' if cap else ''}")
+
+
+def check_decode(got, want):
+    # float32: the same float32 sums in another order (ex2.approx and tanhf
+    # within a few ulp, scores up to the cap of 50); bf16: both round the
+    # same float32 result once, so at most one bf16 step apart
+    tol = (dict(rtol=5e-5, atol=5e-5) if got.dtype == torch.float32
+           else dict(rtol=2 ** -7, atol=1e-5))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=decode_case_id)
+def test_decode_kernel_matches_plain_version(card, case):
+    from repro_torch.kernels import decode_attention as da
+    (B, S, KV, G, D), dtype, window, ring, cap, pos = case
+    rng = np.random.default_rng(S + D)
+    q = rng.standard_normal((B, 1, KV * G, D), dtype=np.float32)
+    if cap:
+        q *= np.float32(CAP_Q_SCALE)
+    k, v = (rng.standard_normal((B, S, KV, D), dtype=np.float32)
+            for _ in range(2))
+    q, k, v = (torch.from_numpy(x).to(device=card, dtype=getattr(torch, dtype))
+               for x in (q, k, v))
+    pos = torch.tensor(pos, dtype=torch.int32, device=card)
+    kw = dict(window=window, ring=ring, cap=cap)
+    splits = da.splits_for(B, KV, G, S, window)
+    before = da.launches
+    got = da.decode_attention_bshd(q, k, v, pos, **kw)
+    one = da._launch(q, k, v, pos.long(), window, ring, cap, D ** -0.5, 1)
+    torch.cuda.synchronize()
+    assert da.launches == before + 2
+    check_decode(got, da.decode_attention_reference(q, k, v, pos,
+                                                    splits=splits, **kw))
+    check_decode(one, da.decode_attention_reference(q, k, v, pos, **kw))
+
+
+def test_decode_step_launches_the_decode_kernel_once_a_layer(card):
+    """A granite-8b smoke decode step on the card: one launch of the
+    decode kernel a layer, by the wrapper's count and the kernel's own,
+    and logits within 0.12 of the same step on the CPU."""
+    from repro_torch import configs as C
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch import serve as S
+    from repro_torch.models import transformer as M
+    cfg = C.get_smoke("granite-8b")
+    params = M.init_params(cfg, seed=0, device="cpu")
+    tokens = S.make_tokens(cfg, 2, 8, seed=1, device="cpu")
+
+    def step(device):
+        def to(tree):
+            if isinstance(tree, dict):
+                return {k: to(v) for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [to(v) for v in tree]
+            return tree.to(device)
+        with torch.inference_mode():
+            _, cache = M.prefill(to(params), cfg, tokens[:, :7].to(device),
+                                 max_seq=12)
+            pos = torch.full((2,), 7, dtype=torch.int32, device=device)
+            logits, _ = M.decode_step(to(params), cfg,
+                                      tokens[:, 7:].to(device), cache, pos)
+        return logits
+
+    want = step("cpu")
+    da.device_launches(reset=True)
+    before = da.launches
+    got = step(card)
+    torch.cuda.synchronize()
+    assert da.launches - before == cfg.n_layers
+    assert da.device_launches() == cfg.n_layers
+    diff = float((got.cpu().float() - want.float()).abs().max())
+    print(f"granite-8b smoke decode, card vs CPU: max |diff| {diff}")
+    assert diff <= 0.12
 
 
 def test_activity_consumers_on_the_card_like_on_the_cpu(card, tmp_path):

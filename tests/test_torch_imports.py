@@ -32,6 +32,7 @@ def test_every_port_module_is_listed():
                  "repro_torch.core.msgpack_subset",
                  "repro_torch.kernels._build",
                  "repro_torch.kernels.flash_attention",
+                 "repro_torch.kernels.decode_attention",
                  "repro_torch.kernels.ops", "repro_torch.models.config",
                  "repro_torch.models.layers",
                  "repro_torch.models.transformer",
